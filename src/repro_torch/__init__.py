@@ -1,0 +1,21 @@
+"""PyTorch/CUDA port of the PointAcc reproduction.
+
+A second package beside `repro` (the JAX/Pallas reference).  It keeps the
+reference's module names and public function names, so each counterpart is
+found under the same path:
+
+    repro_torch.core.packed / core.mapping   packed int64 keys, v2 mapping
+    repro_torch.core.sparseconv              conv flows + Epilogue
+    repro_torch.kernels.spconv               hand-written Hopper kernels
+    repro_torch.api / core.tensor            PointAccSession, SparseTensor
+    repro_torch.models.minkunet              MinkUNet weights + forward
+    repro_torch.serve.engine                 PointCloudEngine.segment
+
+Entry points run on the card.  The CPU is opt-in (`device="cpu"`), where
+every kernel wrapper takes its plain PyTorch version.  The package imports
+neither `jax` nor anything of `repro`.
+"""
+
+from repro_torch.device import configure_precision, resolve_device
+
+__all__ = ["configure_precision", "resolve_device"]

@@ -1,0 +1,220 @@
+"""PointAccSession: one frontend over mapping, conv flows and the
+cross-request mapping cache.
+
+    session = PointAccSession(flow="cuda_fused")
+    x = session.tensor(coords, mask, feats)          # SparseTensor
+    h = session.conv(x, w_subm)                      # submanifold 3^3 conv
+    h = session.conv(h, w_down, stride=2)            # strided down conv
+    y = session.conv_transposed(h, w_up, stride=2)   # decoder up conv
+
+The session holds the policy (mapping engine, flow, cache bound); the
+tensor's `MapContext` holds the per-geometry state.  Not ported yet:
+the fusion planner's VMEM budget (`fused_budget`), `AssemblyCache`, and
+the dense mapping ops (`fps` / `knn` / `ball_query`); see ROADMAP.md.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import warnings
+from collections import OrderedDict
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.core import mapping as M
+from repro_torch.core import sparseconv as SC
+from repro_torch.core.tensor import (MapContext, SparseTensor,
+                                     geometry_digest, infer_kernel_size)
+
+FLOWS = SC.FLOWS
+
+
+@dataclasses.dataclass(frozen=True)
+class SessionConfig:
+    """Session-level policy, threaded to every conv the session runs.
+
+    flow         : computation flow for every conv (core.sparseconv.FLOWS).
+    engine       : mapping engine ("v2" packed keys, or None = "v2").
+    cap          : optional map capacity override (the default covers
+                   every match).
+    cache_entries: LRU bound for the cross-request MappingCache.
+    """
+
+    flow: str = "fod"
+    engine: str | None = None
+    cap: int | None = None
+    cache_entries: int = 32
+
+    def __post_init__(self):
+        if self.flow not in FLOWS:
+            raise ValueError(f"unknown flow {self.flow!r}; one of {FLOWS}")
+        if self.engine == "v1":
+            raise NotImplementedError(M.V1_NOT_PORTED)
+        if self.engine not in (None, "v2"):
+            raise ValueError(f"unknown engine {self.engine!r}")
+
+
+class _LruCache:
+    """LRU mechanics (store / touch / evict / counters) of the caches."""
+
+    def __init__(self, max_entries: int):
+        if max_entries < 1:
+            raise ValueError(
+                f"{type(self).__name__} needs max_entries >= 1")
+        self.max_entries = max_entries
+        self._store: OrderedDict[Any, Any] = OrderedDict()
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+
+    def _lookup(self, key):
+        """(value, found) with hit/miss accounting and LRU touch."""
+        if key in self._store:
+            self.hits += 1
+            self._store.move_to_end(key)
+            return self._store[key], True
+        self.misses += 1
+        return None, False
+
+    def _insert(self, key, value) -> None:
+        self._store[key] = value
+        while len(self._store) > self.max_entries:
+            self._store.popitem(last=False)
+            self.evictions += 1
+
+    def __len__(self) -> int:
+        return len(self._store)
+
+    @property
+    def hit_rate(self) -> float:
+        total = self.hits + self.misses
+        return self.hits / total if total else 0.0
+
+    def stats(self) -> dict:
+        return {"hits": self.hits, "misses": self.misses,
+                "hit_rate": self.hit_rate, "evictions": self.evictions,
+                "entries": len(self._store),
+                "max_entries": self.max_entries}
+
+
+class MappingCache(_LruCache):
+    """LRU-bounded, digest-keyed reuse of mapping work across requests:
+    the maps depend only on the coordinates, so a repeated geometry skips
+    the sort and the binary searches."""
+
+    def __init__(self, max_entries: int = 32):
+        super().__init__(max_entries)
+
+    @staticmethod
+    def digest(arrays, extra=None) -> bytes:
+        """`core.tensor.geometry_digest` of the geometry bytes + `extra`."""
+        return geometry_digest(arrays, extra)
+
+    def get_by_key(self, key: bytes, build: Callable[[], Any]):
+        """(value, hit) for a precomputed digest; `build()` runs on a miss."""
+        value, found = self._lookup(key)
+        if found:
+            return value, True
+        value = build()
+        self._insert(key, value)
+        return value, False
+
+    def get(self, key_arrays, build: Callable[[], Any], extra=None):
+        """(value, hit) for the geometry identified by `key_arrays`."""
+        return self.get_by_key(self.digest(key_arrays, extra), build)
+
+
+class PointAccSession:
+    """Conv verbs + the serving cache.  Holds only policy and the
+    cross-request `MappingCache`; per-geometry state lives in each
+    tensor's `MapContext`."""
+
+    def __init__(self, flow: str = "fod", engine: str | None = None,
+                 cap: int | None = None, cache_entries: int = 32,
+                 config: SessionConfig | None = None):
+        self.config = config or SessionConfig(
+            flow=flow, engine=engine, cap=cap, cache_entries=cache_entries)
+        self.maps_cache = MappingCache(self.config.cache_entries)
+
+    def tensor(self, coords: torch.Tensor, mask: torch.Tensor,
+               feats: torch.Tensor, stride: int = 1,
+               context: MapContext | None = None) -> SparseTensor:
+        """Wrap raw (coords, mask, feats) into a SparseTensor with a fresh
+        MapContext, or an existing one (e.g. rebuilt from cached levels)."""
+        pc = M.make_point_cloud(coords, mask, stride)
+        ctx = context if context is not None else MapContext(
+            engine=self.config.engine, cap=self.config.cap)
+        ctx.register_cloud(stride, pc)
+        return SparseTensor(feats, pc.coords, pc.mask, stride, ctx)
+
+    def out_cloud(self, x: SparseTensor, stride: int = 1) -> M.PointCloud:
+        """The output cloud a conv at `stride` writes to (memoized)."""
+        if stride == 1:
+            return x.pc
+        return x.context.down_cloud(x.stride, stride)
+
+    def canonicalized(self, x: SparseTensor):
+        """(x', order): rows permuted into packed-key order, reusing the
+        context's sort; the permuted cloud's SortedCloud is seeded with
+        the identity perm.  Restore row order with `out[order] = out'`."""
+        sc = x.context.sorted_cloud(x.stride)
+        order = sc.perm
+        coords = x.coords[order]
+        mask = x.mask[order]
+        feats = x.feats[order]
+        pc = M.PointCloud(coords, mask, x.stride)
+        ctx = MapContext(cap=x.context.cap)
+        ctx.register_cloud(x.stride, M.SortedCloud(
+            pc, sc.sorted_keys,
+            torch.arange(x.capacity, device=coords.device)))
+        return SparseTensor(feats, coords, mask, x.stride, ctx), order
+
+    def conv(self, x: SparseTensor, weights: torch.Tensor, stride: int = 1,
+             *, epilogue: SC.Epilogue | None = None,
+             kernel_size: int | None = None) -> SparseTensor:
+        """One sparse conv through the session's flow.  With an epilogue
+        the caller owns masking; without one invalid rows are zeroed."""
+        ks = kernel_size if kernel_size is not None else \
+            infer_kernel_size(weights.shape[0], x.ndim_spatial)
+        maps, out_pc = x.context.conv_maps(ks, x.stride, stride)
+        return self._apply_conv(x, maps, out_pc, weights, epilogue,
+                                x.stride * stride)
+
+    def conv_transposed(self, x: SparseTensor, weights: torch.Tensor,
+                        stride: int = 2, *,
+                        epilogue: SC.Epilogue | None = None,
+                        kernel_size: int | None = None) -> SparseTensor:
+        """Transposed (up-sampling) conv onto the cached finer cloud, with
+        the swapped maps of the forward strided conv."""
+        ks = kernel_size if kernel_size is not None else \
+            infer_kernel_size(weights.shape[0], x.ndim_spatial)
+        maps, out_pc = x.context.transposed_maps(ks, x.stride, stride)
+        if self.config.flow in ("cuda", "cuda_fused") and maps.inv is None:
+            warnings.warn(
+                "transposed conv on maps without an inverse table (built "
+                "with an explicit cap): the kernel flow falls back to a "
+                "scatter-built inverse", stacklevel=2)
+        new_stride = x.stride // stride if stride > 1 else x.stride
+        return self._apply_conv(x, maps, out_pc, weights, epilogue,
+                                new_stride)
+
+    def _apply_conv(self, x: SparseTensor, maps, out_pc, weights,
+                    epilogue: SC.Epilogue | None,
+                    new_stride: int) -> SparseTensor:
+        """Shared conv body: flow dispatch and the masking rule."""
+        out = SC.sparse_conv_apply(x.feats, maps, weights, out_pc.capacity,
+                                   self.config.flow, epilogue=epilogue)
+        if epilogue is None:
+            out = out * out_pc.mask[:, None]
+        return SparseTensor(out, out_pc.coords, out_pc.mask, new_stride,
+                            x.context)
+
+    def cache_stats(self) -> dict:
+        return self.maps_cache.stats()
+
+
+Epilogue = SC.Epilogue
+
+__all__ = ["FLOWS", "MappingCache", "PointAccSession", "SessionConfig",
+           "SparseTensor", "MapContext", "Epilogue"]

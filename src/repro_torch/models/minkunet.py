@@ -1,0 +1,277 @@
+"""MinkowskiUNet-style sparse conv U-Net (the paper's MinkNet benchmark)
+plus the Mini-MinkowskiUNet co-design (paper §5.2.2).
+
+Structure: submanifold stem -> N encoder stages (stride-2 down conv +
+residual blocks) -> N decoder stages (transposed conv back onto the cached
+finer cloud + skip concat + residual blocks) -> linear head.  Every conv
+runs through `PointAccSession.conv` / `conv_transposed` with its epilogue
+(layernorm -> residual -> ReLU -> row mask) as a `core.sparseconv.Epilogue`,
+so `flow="cuda_fused"` folds each into the kernel's flush.
+
+The weights live in `MinkUNet`, an `nn.Module` whose `state_dict` keys are
+the reference's parameter-tree paths joined by "." (`enc.0.blocks.1.n1.
+scale`); `tree()` gives the nested dict the forward reads, and
+`load_jax_params` copies a reference tree (as numpy) into it.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch import nn as N
+from repro_torch.api import PointAccSession
+from repro_torch.core import mapping as M
+from repro_torch.core import sparseconv as SC
+from repro_torch.core.tensor import MapContext, SparseTensor
+
+
+class _Tree(torch.nn.Module):
+    """A nested dict/list of tensors registered as parameters and
+    submodules, named by their keys / list indices."""
+
+    def __init__(self, tree):
+        super().__init__()
+        self._is_list = isinstance(tree, (list, tuple))
+        for k, v in (enumerate(tree) if self._is_list else tree.items()):
+            if isinstance(v, torch.Tensor):
+                self.register_parameter(
+                    str(k), torch.nn.Parameter(v, requires_grad=False))
+            else:
+                self.add_module(str(k), _Tree(v))
+
+    def tree(self):
+        """The nested dict/list view of the parameters."""
+        out = dict(self._parameters)
+        out.update((k, m.tree()) for k, m in self._modules.items())
+        if self._is_list:
+            return [out[str(i)] for i in range(len(out))]
+        return out
+
+
+class MinkUNet(_Tree):
+    """MinkUNet weights; `forward(session, x)` runs `minkunet_forward`."""
+
+    @property
+    def n_stages(self) -> int:
+        return len(self.enc._modules)
+
+    def forward(self, session: PointAccSession, x: SparseTensor):
+        return minkunet_forward(session, self.tree(), x)
+
+
+def _flatten(tree, prefix=""):
+    items = enumerate(tree) if isinstance(tree, (list, tuple)) \
+        else tree.items()
+    for k, v in items:
+        key = f"{prefix}{k}"
+        if isinstance(v, (dict, list, tuple)):
+            yield from _flatten(v, key + ".")
+        else:
+            yield key, v
+
+
+def load_jax_params(module: MinkUNet, tree) -> MinkUNet:
+    """Copy a reference parameter tree (nested dicts/lists of numpy arrays,
+    e.g. `jax.tree_util.tree_map(np.asarray, params)`) into `module`.
+    Keys and shapes must match exactly."""
+    flat = {k: torch.from_numpy(np.array(v, dtype=np.float32))
+            for k, v in _flatten(tree)}
+    own = module.state_dict()
+    if set(flat) != set(own):
+        raise KeyError(
+            f"parameter trees differ: missing {sorted(set(own) - set(flat))}"
+            f", unexpected {sorted(set(flat) - set(own))}")
+    for k, v in flat.items():
+        if tuple(v.shape) != tuple(own[k].shape):
+            raise ValueError(f"{k}: shape {tuple(v.shape)} != "
+                             f"{tuple(own[k].shape)}")
+    module.load_state_dict(flat)
+    return module
+
+
+def _uniform(gen: torch.Generator, shape, scale: float) -> torch.Tensor:
+    return (torch.rand(shape, generator=gen, dtype=torch.float32) * 2 - 1) \
+        * scale
+
+
+def conv_w_init(gen: torch.Generator, k: int, c_in: int,
+                c_out: int) -> torch.Tensor:
+    return _uniform(gen, (k, c_in, c_out), 1.0 / math.sqrt(k * c_in))
+
+
+def _layernorm_init(d: int):
+    return {"scale": torch.ones(d), "bias": torch.zeros(d)}
+
+
+def _dense_init(gen: torch.Generator, d_in: int, d_out: int,
+                use_bias: bool = True):
+    p = {"w": _uniform(gen, (d_in, d_out), 1.0 / math.sqrt(max(1, d_in)))}
+    if use_bias:
+        p["b"] = torch.zeros(d_out)
+    return p
+
+
+def _block_init(gen: torch.Generator, c_in: int, c_out: int):
+    p = {"conv1": conv_w_init(gen, 27, c_in, c_out),
+         "n1": _layernorm_init(c_out),
+         "conv2": conv_w_init(gen, 27, c_out, c_out),
+         "n2": _layernorm_init(c_out)}
+    if c_in != c_out:
+        p["proj"] = _dense_init(gen, c_in, c_out, use_bias=False)
+    return p
+
+
+def minkunet_init(generator: torch.Generator, c_in: int = 4,
+                  n_classes: int = 13, stem: int = 32,
+                  enc_planes: Sequence[int] = (32, 64, 128, 256),
+                  dec_planes: Sequence[int] = (256, 128, 96, 96),
+                  blocks_per_stage: int = 2) -> MinkUNet:
+    """Random MinkUNet weights with the reference's shapes and
+    distributions (uniform +-1/sqrt(fan_in), layernorm ones/zeros, zero
+    head bias), drawn from `generator`."""
+    g = generator
+    params = {"stem": conv_w_init(g, 27, c_in, stem),
+              "stem_n": _layernorm_init(stem)}
+    c = stem
+    enc = []
+    for planes in enc_planes:
+        stage = {"down": conv_w_init(g, 8, c, planes),
+                 "down_n": _layernorm_init(planes), "blocks": []}
+        c = planes
+        for _ in range(blocks_per_stage):
+            stage["blocks"].append(_block_init(g, c, planes))
+        enc.append(stage)
+    params["enc"] = enc
+    dec = []
+    skip_cs = [stem] + list(enc_planes[:-1])
+    for i, planes in enumerate(dec_planes):
+        stage = {"up": conv_w_init(g, 8, c, planes),
+                 "up_n": _layernorm_init(planes), "blocks": []}
+        cb = planes + skip_cs[-(i + 1)]
+        for _ in range(blocks_per_stage):
+            stage["blocks"].append(_block_init(g, cb, planes))
+            cb = planes
+        dec.append(stage)
+        c = planes
+    params["dec"] = dec
+    params["head"] = _dense_init(g, c, n_classes)
+    return MinkUNet(params)
+
+
+def mini_minkunet_init(generator: torch.Generator, c_in: int = 4,
+                       n_classes: int = 13) -> MinkUNet:
+    """The paper's co-designed shallow/narrow MinkowskiUNet (Fig. 16)."""
+    return minkunet_init(generator, c_in, n_classes, stem=16,
+                         enc_planes=(16, 32), dec_planes=(32, 16),
+                         blocks_per_stage=1)
+
+
+def _norm_epilogue(n_params, mask, residual=None):
+    """Epilogue of every trunk conv: layernorm -> (+skip) -> ReLU -> mask."""
+    return SC.Epilogue(ln_scale=n_params["scale"], ln_bias=n_params["bias"],
+                       relu=True, mask=mask, residual=residual)
+
+
+def _block_forward(session: PointAccSession, p, x: SparseTensor):
+    """One residual block: two submanifold convs with their epilogues."""
+    h = session.conv(x, p["conv1"],
+                     epilogue=_norm_epilogue(p["n1"], x.mask))
+    skip = N.dense(p["proj"], x.feats) if "proj" in p else x.feats
+    return session.conv(h, p["conv2"],
+                        epilogue=_norm_epilogue(p["n2"], x.mask,
+                                                residual=skip))
+
+
+def minkunet_forward(session: PointAccSession, params,
+                     x: SparseTensor) -> torch.Tensor:
+    """Forward pass through the session -> (N, n_classes) logits.
+
+    For `flow="cuda_fused"` on a fresh context the cloud is first put into
+    packed-key order (reusing the context's sort) and the head output is
+    scattered back to the caller's row order.  A context that already
+    carries maps (rebuilt from a cached level pyramid) is used as-is.
+    """
+    if isinstance(params, _Tree):
+        params = params.tree()
+    n_stages = len(params["enc"])
+    order = None
+    if session.config.flow == "cuda_fused" and not x.context.maps:
+        x, order = session.canonicalized(x)
+
+    h = session.conv(x, params["stem"],
+                     epilogue=_norm_epilogue(params["stem_n"], x.mask))
+    skips = [h]
+    for stage in params["enc"]:
+        out_mask = session.out_cloud(h, 2).mask
+        h = session.conv(h, stage["down"], stride=2,
+                         epilogue=_norm_epilogue(stage["down_n"], out_mask))
+        for b in stage["blocks"]:
+            h = _block_forward(session, b, h)
+        skips.append(h)
+
+    for i, stage in enumerate(params["dec"]):
+        skip = skips[n_stages - 1 - i]          # target (finer) level
+        h = session.conv_transposed(
+            h, stage["up"], stride=2,
+            epilogue=_norm_epilogue(stage["up_n"], skip.mask))
+        h = h.with_feats(torch.cat([h.feats, skip.feats], dim=-1))
+        for b in stage["blocks"]:
+            h = _block_forward(session, b, h)
+
+    out = N.dense(params["head"], h.feats) * h.mask[:, None]
+    if order is not None:
+        unsorted = torch.zeros_like(out)
+        unsorted[order] = out
+        out = unsorted
+    return out
+
+
+def build_unet_maps(pc: M.PointCloud, n_stages: int,
+                    engine: str | None = None):
+    """Mapping pass: per-level dicts with the level's cloud ("pc"), its
+    SortedCloud ("cloud"), the submanifold k=3 maps ("subm") and the
+    stride-2 down maps into the next level ("down").  Each level is sorted
+    exactly once; the decoder reuses "down" swapped."""
+    ctx = MapContext(engine=engine)
+    ctx.register_cloud(pc.stride, pc)
+    levels = []
+    stride = pc.stride
+    for i in range(n_stages + 1):
+        subm, _ = ctx.conv_maps(3, stride, 1)
+        level = {"pc": ctx.point_cloud(stride), "subm": subm,
+                 "cloud": ctx.sorted_cloud(stride)}
+        if i < n_stages:
+            level["down"], _ = ctx.conv_maps(2, stride, 2)
+            stride *= 2
+        levels.append(level)
+    return levels
+
+
+def _context_from_levels(levels, base_stride: int = 1) -> MapContext:
+    """Rebuild a MapContext from a `build_unet_maps` level pyramid (level i
+    sits at base_stride * 2^i)."""
+    ctx = MapContext()
+    stride = base_stride
+    for level in levels:
+        ctx.clouds[stride] = level.get("cloud", level["pc"])
+        ctx.maps[(3, stride, stride)] = level["subm"]
+        if "down" in level:
+            ctx.maps[(2, stride, 2 * stride)] = level["down"]
+        stride *= 2
+    return ctx
+
+
+def minkunet_apply(params, pc: M.PointCloud, feats: torch.Tensor,
+                   flow: str = "fod", levels=None) -> torch.Tensor:
+    """A session with `flow` + `minkunet_forward`; pass a precomputed
+    `levels` pyramid (from a serving cache) to skip map building."""
+    session = PointAccSession(flow=flow)
+    context = _context_from_levels(levels, pc.stride) \
+        if levels is not None else None
+    x = session.tensor(pc.coords, pc.mask, feats, stride=pc.stride,
+                       context=context)
+    return minkunet_forward(session, params, x)

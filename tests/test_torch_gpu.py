@@ -1,0 +1,61 @@
+"""On a card only: each hand-written CUDA kernel against its plain PyTorch
+version (chip_smoke.py makes the same check at the main path's shapes).
+
+Imports neither jax nor the reference, so it runs on a GPU host as is:
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+Without a CUDA device every case skips, from inside the test.
+
+Tolerance: atol = rtol = 1e-4 — float32 sums taken in another order.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.sparseconv import Epilogue
+from repro_torch.kernels.spconv import ref
+from repro_torch.kernels.spconv import spconv as K
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cin,cout,k", [(5, 7, 27), (4, 32, 27),
+                                        (128, 96, 27), (256, 256, 8),
+                                        (300, 300, 27)])
+def test_cuda_kernels_match_plain_versions(cin, cout, k):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    rng = np.random.default_rng(cin + cout + k)
+    n, m = 700, 500
+    inv = rng.integers(-1, n, size=(k, m)).astype(np.int32)
+    inv[rng.random((k, m)) < 0.4] = -1
+    inv[3] = -1                               # one all-empty offset
+    inv[:, 256:] = -1                         # all-empty row tiles
+
+    def dev(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).cuda()
+
+    feats = dev(rng.normal(size=(n, cin)))
+    w = dev(rng.normal(size=(k, cin, cout)) * 0.2)
+    inv_t = torch.from_numpy(inv).cuda()
+    before = dict(K.LAUNCHES)
+    got = K.spconv_fod_cuda(feats, inv_t, w)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref.spconv_fod_ref(feats, inv_t, w),
+                               **TOL)
+    assert K.LAUNCHES["spconv_fod"] == before["spconv_fod"] + 1
+    if cout > K.MAX_FUSED_COUT:
+        with pytest.raises(ValueError, match="Cout <= 256"):
+            K.spconv_fod_fused_cuda(feats, inv_t, w)
+        return
+    epi = Epilogue(bias=dev(rng.normal(size=cout)),
+                   ln_scale=dev(rng.normal(size=cout)),
+                   ln_bias=dev(rng.normal(size=cout)), relu=True,
+                   mask=dev(rng.random(m) > 0.3),
+                   residual=dev(rng.normal(size=(m, cout))))
+    got = K.spconv_fod_fused_cuda(feats, inv_t, w, epi)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        got, ref.spconv_fod_fused_ref(feats, inv_t, w, epi), **TOL)
+    assert K.LAUNCHES["spconv_fod_fused"] == before["spconv_fod_fused"] + 1
