@@ -6,9 +6,15 @@ found under the same path:
 
     repro_torch.core.packed / core.mapping   packed int64 keys, v2 mapping
     repro_torch.core.sparseconv              conv flows + Epilogue
-    repro_torch.kernels.spconv               hand-written Hopper kernels
+    repro_torch.core.pointops                FPS, kNN, ball query
+    repro_torch.core.fusion                  temporal layer fusion planner
+    repro_torch.kernels.spconv               hand-written Hopper kernels:
+    repro_torch.kernels.fused_mlp              sparse conv, fused MLP chain
     repro_torch.api / core.tensor            PointAccSession, SparseTensor
     repro_torch.models.minkunet              MinkUNet weights + forward
+    repro_torch.models.pointnets             PointNet, PointNet++, DGCNN,
+                                             F-PointNet++
+    repro_torch.models.params                parameter trees, JAX weights
     repro_torch.serve.engine                 PointCloudEngine.segment
 
 Entry points run on the card.  The CPU is opt-in (`device="cpu"`), where

@@ -7,10 +7,13 @@ cross-request mapping cache.
     h = session.conv(h, w_down, stride=2)            # strided down conv
     y = session.conv_transposed(h, w_up, stride=2)   # decoder up conv
 
+    idx = session.fps(xyz, mask, 256)                # farthest points
+    nbr, ok = session.ball_query(q, qm, xyz, mask, 0.1, 32)
+
 The session holds the policy (mapping engine, flow, cache bound); the
-tensor's `MapContext` holds the per-geometry state.  Not ported yet:
-the fusion planner's VMEM budget (`fused_budget`), `AssemblyCache`, and
-the dense mapping ops (`fps` / `knn` / `ball_query`); see ROADMAP.md.
+tensor's `MapContext` holds the per-geometry state.  Not ported yet: the
+conv-epilogue planner's budget (`fused_budget`) and `AssemblyCache`; see
+ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.core import mapping as M
+from repro_torch.core import pointops as P
 from repro_torch.core import sparseconv as SC
 from repro_torch.core.tensor import (MapContext, SparseTensor,
                                      geometry_digest, infer_kernel_size)
@@ -209,6 +213,27 @@ class PointAccSession:
             out = out * out_pc.mask[:, None]
         return SparseTensor(out, out_pc.coords, out_pc.mask, new_stride,
                             x.context)
+
+    # -- dense mapping ops (PointNet-family heads) ------------------------
+
+    @staticmethod
+    def fps(xyz, mask, n_samples: int):
+        """Farthest-point sampling (Max ranking, paper Table 1)."""
+        return P.farthest_point_sampling(xyz, mask, n_samples)
+
+    @staticmethod
+    def knn(query_xyz, query_mask, ref_xyz, ref_mask, k: int, **kw):
+        """k-nearest-neighbours (TopK ranking)."""
+        return P.knn(query_xyz, query_mask, ref_xyz, ref_mask, k, **kw)
+
+    @staticmethod
+    def ball_query(query_xyz, query_mask, ref_xyz, ref_mask,
+                   radius: float, k: int):
+        """Ball query (TopK ranking over clipped distances)."""
+        return P.ball_query(query_xyz, query_mask, ref_xyz, ref_mask,
+                            radius, k)
+
+    # -- serving ----------------------------------------------------------
 
     def cache_stats(self) -> dict:
         return self.maps_cache.stats()

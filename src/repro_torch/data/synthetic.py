@@ -1,4 +1,4 @@
-"""Deterministic synthetic LiDAR scenes (numpy only).
+"""Deterministic synthetic LiDAR scenes and point clouds (numpy only).
 
 The same functions, with the same seeds, as the reference package's
 `data/synthetic.py`, so both packages see identical input scenes.
@@ -78,3 +78,19 @@ def city_scene(seed: int, n_points: int, extent: int | None = None,
     feats[:n, :3] = uniq / extent - 0.5
     feats[:n, 3] = rng.random(n)
     return coords, mask, feats
+
+
+def dense_xyz_batch(seed: int, step: int, batch: int, n_points: int):
+    """(B, N, 3) float clouds + masks + class labels for PointNet-family."""
+    rng = np.random.default_rng(np.random.SeedSequence([seed, step]))
+    labels = rng.integers(0, 8, size=batch).astype(np.int32)
+    xyz = np.zeros((batch, n_points, 3), np.float32)
+    for b in range(batch):
+        # class-dependent ellipsoid
+        ax = 0.3 + 0.1 * (labels[b] % 4)
+        raw = rng.normal(size=(n_points, 3)).astype(np.float32)
+        raw /= np.linalg.norm(raw, axis=1, keepdims=True) + 1e-6
+        r = rng.random((n_points, 1)).astype(np.float32) ** (1 / 3)
+        xyz[b] = raw * r * np.array([ax, 0.4, 1.0 - ax], np.float32)
+    mask = np.ones((batch, n_points), bool)
+    return xyz, mask, labels

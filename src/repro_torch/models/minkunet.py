@@ -8,10 +8,10 @@ runs through `PointAccSession.conv` / `conv_transposed` with its epilogue
 (layernorm -> residual -> ReLU -> row mask) as a `core.sparseconv.Epilogue`,
 so `flow="cuda_fused"` folds each into the kernel's flush.
 
-The weights live in `MinkUNet`, an `nn.Module` whose `state_dict` keys are
-the reference's parameter-tree paths joined by "." (`enc.0.blocks.1.n1.
-scale`); `tree()` gives the nested dict the forward reads, and
-`load_jax_params` copies a reference tree (as numpy) into it.
+The weights live in `MinkUNet`, a `models.params.ParamTree` whose
+`state_dict` keys are the reference's parameter-tree paths joined by "."
+(`enc.0.blocks.1.n1.scale`); `load_jax_params` copies a reference tree
+(as numpy) into it.
 """
 
 from __future__ import annotations
@@ -19,7 +19,6 @@ from __future__ import annotations
 import math
 from typing import Sequence
 
-import numpy as np
 import torch
 
 from repro_torch import nn as N
@@ -27,32 +26,10 @@ from repro_torch.api import PointAccSession
 from repro_torch.core import mapping as M
 from repro_torch.core import sparseconv as SC
 from repro_torch.core.tensor import MapContext, SparseTensor
+from repro_torch.models.params import ParamTree, load_jax_params  # noqa: F401
 
 
-class _Tree(torch.nn.Module):
-    """A nested dict/list of tensors registered as parameters and
-    submodules, named by their keys / list indices."""
-
-    def __init__(self, tree):
-        super().__init__()
-        self._is_list = isinstance(tree, (list, tuple))
-        for k, v in (enumerate(tree) if self._is_list else tree.items()):
-            if isinstance(v, torch.Tensor):
-                self.register_parameter(
-                    str(k), torch.nn.Parameter(v, requires_grad=False))
-            else:
-                self.add_module(str(k), _Tree(v))
-
-    def tree(self):
-        """The nested dict/list view of the parameters."""
-        out = dict(self._parameters)
-        out.update((k, m.tree()) for k, m in self._modules.items())
-        if self._is_list:
-            return [out[str(i)] for i in range(len(out))]
-        return out
-
-
-class MinkUNet(_Tree):
+class MinkUNet(ParamTree):
     """MinkUNet weights; `forward(session, x)` runs `minkunet_forward`."""
 
     @property
@@ -63,56 +40,13 @@ class MinkUNet(_Tree):
         return minkunet_forward(session, self.tree(), x)
 
 
-def _flatten(tree, prefix=""):
-    items = enumerate(tree) if isinstance(tree, (list, tuple)) \
-        else tree.items()
-    for k, v in items:
-        key = f"{prefix}{k}"
-        if isinstance(v, (dict, list, tuple)):
-            yield from _flatten(v, key + ".")
-        else:
-            yield key, v
-
-
-def load_jax_params(module: MinkUNet, tree) -> MinkUNet:
-    """Copy a reference parameter tree (nested dicts/lists of numpy arrays,
-    e.g. `jax.tree_util.tree_map(np.asarray, params)`) into `module`.
-    Keys and shapes must match exactly."""
-    flat = {k: torch.from_numpy(np.array(v, dtype=np.float32))
-            for k, v in _flatten(tree)}
-    own = module.state_dict()
-    if set(flat) != set(own):
-        raise KeyError(
-            f"parameter trees differ: missing {sorted(set(own) - set(flat))}"
-            f", unexpected {sorted(set(flat) - set(own))}")
-    for k, v in flat.items():
-        if tuple(v.shape) != tuple(own[k].shape):
-            raise ValueError(f"{k}: shape {tuple(v.shape)} != "
-                             f"{tuple(own[k].shape)}")
-    module.load_state_dict(flat)
-    return module
-
-
-def _uniform(gen: torch.Generator, shape, scale: float) -> torch.Tensor:
-    return (torch.rand(shape, generator=gen, dtype=torch.float32) * 2 - 1) \
-        * scale
-
-
 def conv_w_init(gen: torch.Generator, k: int, c_in: int,
                 c_out: int) -> torch.Tensor:
-    return _uniform(gen, (k, c_in, c_out), 1.0 / math.sqrt(k * c_in))
+    return N.uniform_init(gen, (k, c_in, c_out), 1.0 / math.sqrt(k * c_in))
 
 
 def _layernorm_init(d: int):
     return {"scale": torch.ones(d), "bias": torch.zeros(d)}
-
-
-def _dense_init(gen: torch.Generator, d_in: int, d_out: int,
-                use_bias: bool = True):
-    p = {"w": _uniform(gen, (d_in, d_out), 1.0 / math.sqrt(max(1, d_in)))}
-    if use_bias:
-        p["b"] = torch.zeros(d_out)
-    return p
 
 
 def _block_init(gen: torch.Generator, c_in: int, c_out: int):
@@ -121,7 +55,7 @@ def _block_init(gen: torch.Generator, c_in: int, c_out: int):
          "conv2": conv_w_init(gen, 27, c_out, c_out),
          "n2": _layernorm_init(c_out)}
     if c_in != c_out:
-        p["proj"] = _dense_init(gen, c_in, c_out, use_bias=False)
+        p["proj"] = N.dense_init(gen, c_in, c_out, use_bias=False)
     return p
 
 
@@ -158,7 +92,7 @@ def minkunet_init(generator: torch.Generator, c_in: int = 4,
         dec.append(stage)
         c = planes
     params["dec"] = dec
-    params["head"] = _dense_init(g, c, n_classes)
+    params["head"] = N.dense_init(g, c, n_classes)
     return MinkUNet(params)
 
 
@@ -195,7 +129,7 @@ def minkunet_forward(session: PointAccSession, params,
     scattered back to the caller's row order.  A context that already
     carries maps (rebuilt from a cached level pyramid) is used as-is.
     """
-    if isinstance(params, _Tree):
+    if isinstance(params, ParamTree):
         params = params.tree()
     n_stages = len(params["enc"])
     order = None

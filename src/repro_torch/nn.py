@@ -1,11 +1,39 @@
 """Functional layers on parameter dicts: the parts of the reference's
-`nn.py` that the MinkUNet path uses."""
+`nn.py` that the port's models use, and their initialisers."""
 
 from __future__ import annotations
 
+import math
+from typing import Sequence
+
 import torch
 
+from repro_torch.kernels.fused_mlp.ref import chain_operands, fused_mlp_ref
+
 LN_EPS = 1e-6  # the reference's layernorm eps (torch's default is 1e-5)
+
+
+def uniform_init(gen: torch.Generator, shape, scale: float) -> torch.Tensor:
+    """Uniform in [-scale, scale) from `gen`, float32 on the CPU."""
+    return (torch.rand(shape, generator=gen, dtype=torch.float32) * 2 - 1) \
+        * scale
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int,
+               use_bias: bool = True):
+    """The reference's `dense_init`: w uniform +-1/sqrt(fan_in), zero b."""
+    p = {"w": uniform_init(gen, (d_in, d_out), 1.0 / math.sqrt(max(1, d_in)))}
+    if use_bias:
+        p["b"] = torch.zeros(d_out)
+    return p
+
+
+def mlp_chain_init(gen: torch.Generator, widths: Sequence[int],
+                   use_bias: bool = True):
+    """A chain of FC layers {"fc0": ..., "fc1": ...} (the paper's fusable
+    dense blocks)."""
+    return {f"fc{i}": dense_init(gen, widths[i], widths[i + 1], use_bias)
+            for i in range(len(widths) - 1)}
 
 
 def dense(p, x: torch.Tensor) -> torch.Tensor:
@@ -15,6 +43,13 @@ def dense(p, x: torch.Tensor) -> torch.Tensor:
     if "b" in p:
         y = y + p["b"]
     return y
+
+
+def mlp_chain(p, x: torch.Tensor, final_act: bool = True) -> torch.Tensor:
+    """The chain layer by layer with ReLU between (and after the last
+    layer when `final_act`): the fused-MLP kernel's plain version on a
+    parameter dict, the oracle of `kernels.fused_mlp.ops.fused_mlp_chain`."""
+    return fused_mlp_ref(x, *chain_operands(p), final_act)
 
 
 def layernorm(p, x: torch.Tensor, eps: float = LN_EPS) -> torch.Tensor:

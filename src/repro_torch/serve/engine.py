@@ -26,6 +26,7 @@ from repro_torch.api import MappingCache, PointAccSession
 from repro_torch.core import mapping as M
 from repro_torch.device import resolve_device
 from repro_torch.models import minkunet as MU
+from repro_torch.models.params import ParamTree
 from repro_torch.serve import buckets as BK
 
 _BATCHED = ("batched serving (segment_batch, the ServeScheduler, "
@@ -48,7 +49,7 @@ class PointCloudEngine:
                  engine: Optional[str] = None, cache_entries: int = 32,
                  ladder: Optional[BK.BucketLadder] = None):
         self.device = resolve_device(device)
-        module = params_or_module if isinstance(params_or_module, MU._Tree) \
+        module = params_or_module if isinstance(params_or_module, ParamTree) \
             else MU.MinkUNet(params_or_module)
         self.module = module.to(self.device)
         self.session = PointAccSession(flow=flow, engine=engine,

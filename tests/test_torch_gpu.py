@@ -5,7 +5,8 @@ Imports neither jax nor the reference, so it runs on a GPU host as is:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 Without a CUDA device every case skips, from inside the test.
 
-Tolerance: atol = rtol = 1e-4 — float32 sums taken in another order.
+Tolerance: atol = rtol = 1e-4 — float32 sums taken in another order;
+2e-2 for the fused MLP in bfloat16 (one bf16 rounding of the output).
 """
 
 import numpy as np
@@ -59,3 +60,35 @@ def test_cuda_kernels_match_plain_versions(cin, cout, k):
     torch.testing.assert_close(
         got, ref.spconv_fod_fused_ref(feats, inv_t, w, epi), **TOL)
     assert K.LAUNCHES["spconv_fod_fused"] == before["spconv_fod_fused"] + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("widths,final_act,n", [
+    ([3, 32, 32, 64], True, 1000), ([67, 64, 64, 128], True, 1000),
+    ([128, 1024], True, 1000), ([1024, 512, 256, 40], False, 1000),
+    ([1024, 512], True, 8)])       # 1000: not a multiple of any row tile
+def test_fused_mlp_kernel_matches_plain_version(widths, final_act, n, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.kernels.fused_mlp import fused_mlp as F
+    from repro_torch.kernels.fused_mlp.ref import fused_mlp_ref
+    rng = np.random.default_rng(sum(widths))
+    dt = getattr(torch, dtype)
+
+    def dev(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to("cuda", dt)
+
+    x = dev(rng.normal(size=(n, widths[0])))
+    ws = [dev(rng.normal(size=(a, b)) / np.sqrt(a))
+          for a, b in zip(widths[:-1], widths[1:])]
+    bs = [dev(rng.normal(size=b) * 0.1) for b in widths[1:]]
+    before = F.LAUNCHES["fused_mlp"]
+    got = F.fused_mlp_cuda(x, ws, bs, final_act)
+    torch.cuda.synchronize()
+    assert got.dtype == dt and got.shape == (n, widths[-1])
+    tol = TOL if dt == torch.float32 else dict(rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(got.float(),
+                               fused_mlp_ref(x, ws, bs, final_act).float(),
+                               **tol)
+    assert F.LAUNCHES["fused_mlp"] == before + 1

@@ -20,6 +20,7 @@ from repro.models import minkunet as MU
 from repro_torch.core import mapping as TM
 from repro_torch.kernels.spconv import spconv as TK
 from repro_torch.models import minkunet as TMU
+from repro_torch.models.params import flatten_tree
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 REDUCED = dict(stem=8, enc_planes=(8, 16), dec_planes=(16, 8),
@@ -88,7 +89,7 @@ def test_init_shapes_keys_and_distributions_match_reference(init):
     else:
         ref = jax.eval_shape(lambda: MU.mini_minkunet_init(jax.random.key(0)))
         module = TMU.mini_minkunet_init(torch.Generator().manual_seed(0))
-    flat = dict(TMU._flatten(ref))
+    flat = dict(flatten_tree(ref))
     state = module.state_dict()
     assert set(state) == set(flat)
     for key, leaf in flat.items():
