@@ -54,18 +54,54 @@ Phases (any failure exits non-zero; none catches its own):
      PointNet++(ps), DGCNN at k = 20, F-PointNet++), width 1, B = 8 x 1024:
      one forward each through the kernel (launches = planned groups) and
      one plain, checked the same way (F-PointNet++'s centre and box too).
-  8. a {"kernels": [...]} line, the nvidia-smi line, and last the
-     {"ok": true, "device": {...}} line.
+  8. LM kernels: full-width granite-moe-1b-a400m (the repo's config:
+     24 layers, d_model 1024, 16 / 8 heads of 64, 32 experts top-8, vocab
+     49155) with random weights from torch.Generator("cuda").manual_seed(0)
+     in the reference's init.  One plain bf16 prefill of 8 x 512 prompt
+     tokens (`np.random.default_rng(0)`) and 8 plain decode steps record
+     the operands of layer 0's and layer 23's flash_attention, their three
+     grouped_matmul calls (w_in, w_gate, w_out) and two flash_decode calls.
+     Each kernel is held against its plain version on them at float32
+     (max|kernel - plain| <= 1e-5 * max|plain|: sums in another order) and
+     at bf16 (<= 8e-3 * max|plain|: one bf16 rounding of the output
+     scale), and timed at bf16 as device time a call (CUDA graph; the
+     calls take turns over enough copies of the operands that each reads
+     them from device memory, not from L2) beside its plain version and
+     one library call (SDPA with is_causal and
+     enable_gqa; `torch.bmm` over the (E, capacity, Cin) view; SDPA over
+     the cache's valid prefix), with its bound: the larger of the bytes
+     read and written once at 3.35 TB/s and the operations the masks
+     leave at 989 TFLOP/s (bf16).  flash_attention is also checked with a
+     window and a softcap and at head_dim 128 and 256.
+  9. LM main path: `ServeEngine(build(cfg), params, ServeConfig(max_len=
+     1024))` (bf16 weights and cache), `generate(prompts, 32)` once to
+     warm up and three timed runs; prefill ms, decode ms a step and
+     tokens/s on the host clock around synchronised calls.  Launch counts
+     are zeroed just before and read just after: 24 flash_attention and 72
+     grouped_matmul launches a prefill, 24 flash_decode a decode step.
+  10. LM correctness: the plain path (all three kernels swapped for their
+     plain versions here) is teacher-forced on the kernel path's tokens,
+     and prefill and every decode step's logits compared: at bf16 (the
+     main path) within LM_BF16_PATH_TOL * max|plain|, at float32 (an
+     engine with compute and cache in float32) within 1e-4 * max|plain|;
+     a greedy token may differ only where the plain top-2 gap is below the
+     same bound.  Three negative controls at float32 must be rejected:
+     flash_attention skipping its last kv tile, grouped_matmul writing
+     expert 0's tiles as zeros, flash_decode reading lengths - 1.
+  11. a {"kernels": [...]} line (six kernels), the nvidia-smi line, and
+     last the {"ok": true, "device": {...}} line.
 
-`--profile` adds torch.profiler tables of one segment request and of one
-PointNet++(s) forward, split into FPS, ball query, kNN, gathers and
+`--profile` adds torch.profiler tables of one segment request, of one
+PointNet++(s) forward (split into FPS, ball query, kNN, gathers and
 fused-MLP groups, with the forward's device time and that of the
-`fused_mlp_kernel` rows.
+`fused_mlp_kernel` rows), of one LM prefill and of four LM decode steps
+(device busy share, and the time of each LM kernel).
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import statistics
 import subprocess
@@ -96,6 +132,16 @@ PEAKS = {  # (bytes/s, float32 non-tensor FLOP/s), NVIDIA data sheets
     "sxm": (3.35e12, 67e12),
     "pcie": (2.0e12, 51e12),
 }
+BF16_PEAKS = {"sxm": 989e12, "pcie": 756e12}  # dense bf16 tensor FLOP/s
+LM_ARCH = "granite-moe-1b-a400m"
+LM_BATCH, LM_PROMPT, LM_NEW, LM_MAX_LEN = 8, 512, 32, 1024
+LM_PLAIN_STEPS = 8           # decode steps of the kernel phase's plain run
+LM_CONTROL_STEPS = 4         # decode steps of each negative control
+LM_F32_TOL = 1e-4            # teacher-forced logits: err <= tol * max|plain|
+LM_BF16_TOL = 8e-3           # kernel phase at bf16: one rounding of the scale
+LM_KERNEL_F32_TOL = 1e-5     # kernel phase at f32
+LM_BF16_PATH_TOL = 5e-2      # teacher-forced logits at bf16
+LM_NEAR_TIE = {"f32": 1e-4, "bf16": 2.0 ** -5}  # routing flips: gap / p_k
 
 
 def smi_line() -> str:
@@ -143,6 +189,22 @@ def graph_ms(fn, reps: int) -> float:
     torch.cuda.synchronize()
     del graph
     return start.elapsed_time(end) / (reps * GRAPH_REPLAYS)
+
+
+def rotating(fns):
+    """One zero-argument call that runs fns[0], fns[1], ... in turn."""
+    it = itertools.cycle(fns)
+    return lambda: next(it)()
+
+
+def cold_copies(args, nbytes: int, l2_bytes: int) -> list:
+    """`args` and clones of its tensors, enough that the calls in between
+    two uses of one copy move at least twice the L2 cache: timed in
+    turn, each call reads its operands from device memory."""
+    import torch
+    n = min(MLP_REPS, 1 + -(-2 * l2_bytes // nbytes))
+    return [args] + [tuple(a.clone() if torch.is_tensor(a) else a
+                           for a in args) for _ in range(n - 1)]
 
 
 def smoke_weights(model, gen):
@@ -492,6 +554,655 @@ def point_phases(dev, mem_rate: float, flop_rate: float,
     return point_launches, mlp
 
 
+@contextlib.contextmanager
+def lm_kernels_through(fa=None, gmm=None, fd=None):
+    """Run the LM path's flash_attention / grouped_matmul / flash_decode
+    calls through the given functions (same signatures as the `ops`
+    entry points) instead of the kernels: the plain path, recording or
+    broken stand-ins, for checks."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.grouped_matmul import ops as gmm_ops
+    slots = [(fa_ops, "flash_attention", fa), (gmm_ops, "grouped_matmul", gmm),
+             (fd_ops, "flash_decode", fd)]
+    saved = [getattr(mod, name) for mod, name, _ in slots]
+    for mod, name, fn in slots:
+        if fn is not None:
+            setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for (mod, name, _), orig in zip(slots, saved):
+            setattr(mod, name, orig)
+
+
+def plain_lm(record=None, keep_calls=None):
+    """The three LM kernels' plain versions as ops-shaped functions.  With
+    `record`, each call appends to record[name] its operands when its call
+    index is in keep_calls[name], else None."""
+    import torch
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+    from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref
+
+    def keep(name, args):
+        if record is not None:
+            calls = record.setdefault(name, [])
+            calls.append(args if len(calls) in keep_calls[name] else None)
+
+    def fa(q, k, v, causal=True, window=None, softcap=None, scale=None):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+        keep("flash_attention", (q, k, v, kw))
+        return attention_ref(q, k, v, **kw)
+
+    def gmm(x, tile_eid, weights, row_tile=128):
+        keep("grouped_matmul", (x.contiguous(), tile_eid, weights, row_tile))
+        return grouped_matmul_ref(x, tile_eid, weights, row_tile)
+
+    def fd(q, k, v, lengths, *, softcap=None, scale=None):
+        lengths = lengths.to(torch.int32)
+        keep("flash_decode", (q.contiguous(), k, v, lengths,
+                              dict(softcap=softcap, scale=scale)))
+        return flash_decode_ref(q, k, v, lengths, softcap=softcap, scale=scale)
+    return {"fa": fa, "gmm": gmm, "fd": fd}
+
+
+def teacher_forced(engine, prompts, tokens, steps=None):
+    """The engine's prefill on `prompts`, then decode steps fed `tokens`
+    (B, N) (the first `steps` of them): the logits of the prefill
+    (B, S, V) and of each step (B, V), in float32."""
+    import torch
+    b, s = prompts.shape
+    dev = engine.device
+    batch = {"tokens": torch.as_tensor(prompts, dtype=torch.int64, device=dev),
+             "positions": torch.arange(s, device=dev).expand(b, s)}
+    with torch.no_grad():
+        logits, pre, _ = engine.model.prefill(engine.params, batch)
+        out = [logits.float()]
+        states = engine.place_states(pre, b)
+        del pre, logits
+        n = tokens.shape[1] if steps is None else steps
+        for t in range(n):
+            pos = s + t
+            db = {"tokens": torch.as_tensor(tokens[:, t:t + 1], dtype=torch.int64,
+                                            device=dev),
+                  "positions": torch.full((b, 1), pos, dtype=torch.int64,
+                                          device=dev),
+                  "cache_pos": torch.full((b,), pos, dtype=torch.int64,
+                                          device=dev)}
+            logits, states, _ = engine.model.decode(engine.params, db, states)
+            out.append(logits[:, -1].float())
+    return out
+
+
+def lm_compare(got, want, tol):
+    """The LM path's rule, step by step (prefill, then each decode step):
+    max|got - want| <= tol * max|want|, and greedy tokens equal except
+    where want's top-2 gap is below tol * max|want|.  Returns (ok, tokens
+    that differ, of them tolerated, relative error per step)."""
+    ok, n_diff, n_close, rels = True, 0, 0, []
+    for g, w in zip(got, want):
+        if g.shape != w.shape or not bool(g.isfinite().all()):
+            return False, -1, 0, rels
+        scale = float(w.abs().max())
+        rel = float((g - w).abs().max()) / scale
+        rels.append(rel)
+        top2 = w.topk(2, dim=-1).values
+        gap = top2[..., 0] - top2[..., 1]
+        diff = g.argmax(-1) != w.argmax(-1)
+        close = diff & (gap < tol * scale)
+        n_diff += int(diff.sum())
+        n_close += int(close.sum())
+        ok = ok and rel <= tol and not int((diff & ~close).sum())
+    return ok, n_diff, n_close, rels
+
+
+@contextlib.contextmanager
+def routes_through(fn):
+    """Run the MoE router (`models.moe.route`) through `fn`."""
+    from repro_torch.models import moe
+    saved = moe.route
+    moe.route = fn
+    try:
+        yield
+    finally:
+        moe.route = saved
+
+
+def _router_probs(p, x2d):
+    import torch
+    from repro_torch import nn
+    return torch.softmax(nn.dense(p["router"], x2d).float(), dim=-1)
+
+
+def recording_route(store):
+    """`route` that appends, per call, its expert choices and the top-(k+1)
+    router probabilities, sorted."""
+    from repro_torch.models import moe
+    route = moe.route
+
+    def fn(p, cfg, x2d):
+        out = route(p, cfg, x2d)
+        top = _router_probs(p, x2d).sort(dim=-1, descending=True).values
+        store.append((out[1], top[:, :cfg.topk + 1]))
+        return out
+    return fn
+
+
+def imposed_route(routes):
+    """`route` that takes its expert choices, call by call, from a recorded
+    run, with gates from this run's router probabilities at those
+    experts."""
+    from repro_torch.models import moe
+    route = moe.route
+    calls = iter(routes)
+
+    def fn(p, cfg, x2d):
+        _, _, aux = route(p, cfg, x2d)
+        idx = next(calls)[0]
+        g = _router_probs(p, x2d).gather(1, idx)
+        return (g / g.sum(dim=-1, keepdim=True)).to(x2d.dtype), idx, aux
+    return fn
+
+
+def routing_flips(got, want, batch: int, n_layers: int):
+    """Compare two recorded runs' routing (prefill calls, then decode steps,
+    n_layers calls each).  A (token, layer) pair whose expert set differs
+    perturbs every later layer of its sequence at its position and after;
+    in the prefill it perturbs every later layer of every token, since the
+    sorted dispatch drops assignments past an expert's capacity over the
+    whole batch.  Only differences outside every earlier one's reach are
+    root causes.  Returns (pairs that differ, the roots as (layer,
+    position, relative top-k gap (p_k - p_{k+1}) / p_k of `want`'s router)
+    sorted widest gap first)."""
+    seq = want[0][0].shape[0] // batch
+    flips = []                           # (sequence, layer, pos, gap)
+    for c, ((gi, _), (wi, wtop)) in enumerate(zip(got, want)):
+        diff = (gi.sort(-1).values != wi.sort(-1).values).any(-1)
+        if not bool(diff.any()):
+            continue
+        k = wi.shape[1]
+        gap = ((wtop[:, k - 1] - wtop[:, k]) / wtop[:, k - 1]).tolist()
+        layer, step = c % n_layers, c // n_layers
+        for t in diff.nonzero().flatten().tolist():
+            b, pos = divmod(t, seq) if step == 0 else (t, seq + step - 1)
+            flips.append((b, layer, pos, gap[t]))
+    first_prefill = min((f[1] for f in flips if f[2] < seq), default=n_layers)
+    roots = [(layer, pos, gap) for b, layer, pos, gap in flips
+             if layer <= first_prefill
+             and not any(b0 == b and l0 < layer and p0 <= pos
+                         for b0, l0, p0, _ in flips)]
+    return len(flips), sorted(roots, key=lambda r: -r[2])
+
+
+def capacity_drops(routes, n_experts: int, n_layers: int,
+                   capacity_factor: float = 1.5, row_tile: int = 128) -> int:
+    """Assignments the sorted dispatch drops at capacity over a recorded
+    run's prefill calls (the capacity rule of `sorted_moe_ffn`)."""
+    import torch
+    drops = 0
+    for idx, _ in routes[:n_layers]:
+        t, k = idx.shape
+        cap = -(-(int(t * k * capacity_factor / n_experts) + 1) // row_tile) \
+            * row_tile
+        counts = torch.bincount(idx.flatten(), minlength=n_experts)
+        drops += int((counts - cap).clamp(min=0).sum())
+    return drops
+
+
+def lm_phases(dev, mem_rate: float, bf16_rate: float, with_profile: bool):
+    """Phases 8-10 (see the module docstring).  Returns the kernels-line
+    entries of the three LM kernels."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get as get_config
+    from repro_torch.kernels.flash_attention import flash_attention as FAK
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.flash_decode import flash_decode as FDK
+    from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+    from repro_torch.kernels.grouped_matmul import grouped_matmul as GMK
+    from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref
+    from repro_torch.models import registry
+    from repro_torch.serve.lm import ServeConfig, ServeEngine
+
+    t_lm = time.perf_counter()
+    # the card's L2 (50 MiB on an H100 where torch does not report it)
+    l2_bytes = getattr(torch.cuda.get_device_properties(dev),
+                       "L2_cache_size", 50 * 2**20)
+    cfg = get_config(LM_ARCH)
+    model = registry.build(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    n_params = sum(p.numel() for p in params.parameters())
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))
+    engine = ServeEngine(model, params, ServeConfig(max_len=LM_MAX_LEN),
+                         device=dev)
+    print(f"LM: {LM_ARCH} full width ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, "
+          f"{cfg.n_experts} experts top-{cfg.topk}, vocab {cfg.vocab_size}), "
+          f"{n_params / 1e9:.3f} B parameters from torch.Generator(cuda)"
+          f".manual_seed(0); prompts {LM_BATCH} x {LM_PROMPT}")
+
+    # 8. kernel phase: record the kernels' operands in one plain bf16
+    # prefill and LM_PLAIN_STEPS plain decode steps
+    rec: dict = {}
+    b, s = prompts.shape
+    last = cfg.n_layers - 1
+    step = (LM_PLAIN_STEPS - 1) * cfg.n_layers
+    keep_calls = {"flash_attention": {0, last},
+                  "grouped_matmul": {0, 1, 2, 3 * last, 3 * last + 1,
+                                     3 * last + 2},
+                  "flash_decode": {step, step + last}}
+    with lm_kernels_through(**plain_lm(rec, keep_calls)):
+        # decode inputs: the prompts' first tokens (only the operands count)
+        teacher_forced(engine, prompts, prompts[:, :LM_PLAIN_STEPS])
+    n_fa, n_gmm = len(rec["flash_attention"]), len(rec["grouped_matmul"])
+    n_fd = len(rec["flash_decode"])
+    if (n_fa, n_gmm, n_fd) != (cfg.n_layers, 3 * cfg.n_layers,
+                               cfg.n_layers * LM_PLAIN_STEPS):
+        raise AssertionError(f"plain run recorded {n_fa} attention, {n_gmm} "
+                             f"grouped-matmul, {n_fd} decode calls")
+    sites = ([("flash_attention", f"layer {i}", rec["flash_attention"][i])
+              for i in (0, last)]
+             + [("grouped_matmul", f"layer {i} {w}",
+                 rec["grouped_matmul"][3 * i + j])
+                for i in (0, last) for j, w in enumerate(("w_in", "w_gate",
+                                                          "w_out"))]
+             + [("flash_decode", f"step {LM_PLAIN_STEPS - 1} layer {i}",
+                 rec["flash_decode"][(LM_PLAIN_STEPS - 1) * cfg.n_layers + i])
+                for i in (0, last)])
+    del rec
+
+    def calls(kind, args, dtype=None):
+        """(kernel, plain, library) zero-argument calls on args, cast to
+        dtype when given."""
+        cast = (lambda t: t.to(dtype)) if dtype is not None else (lambda t: t)
+        if kind == "flash_attention":
+            q, k, v, kw = args
+            q, k, v = cast(q), cast(k), cast(v)
+            return (lambda: FAK.flash_attention_cuda(q, k, v, **kw),
+                    lambda: attention_ref(q, k, v, **kw),
+                    lambda: F.scaled_dot_product_attention(
+                        q, k, v, is_causal=True, scale=kw["scale"],
+                        enable_gqa=True))
+        if kind == "grouped_matmul":
+            x, eid, w, rt = args
+            x, w = cast(x), cast(w)
+            e = w.shape[0]
+            xe = x.view(e, x.shape[0] // e, x.shape[1])
+            return (lambda: GMK.grouped_matmul_cuda(x, eid, w, rt),
+                    lambda: grouped_matmul_ref(x, eid, w, rt),
+                    lambda: torch.bmm(xe, w))
+        q, k, v, lengths, kw = args
+        q, k, v = cast(q), cast(k), cast(v)
+        n = int(lengths.max())
+        if int(lengths.min()) != n:
+            raise AssertionError("the library yardstick takes one length")
+        q4 = q[:, :, None, :]
+        kl, vl = k[:, :n].transpose(1, 2), v[:, :n].transpose(1, 2)
+        return (lambda: FDK.flash_decode_cuda(q, k, v, lengths, **kw),
+                lambda: flash_decode_ref(q, k, v, lengths, **kw),
+                lambda: F.scaled_dot_product_attention(
+                    q4, kl, vl, scale=kw["scale"], enable_gqa=True))
+
+    def work(kind, args):
+        """(bytes, FLOPs) the call needs: each input read once, each output
+        written once; attention pairs the masks leave."""
+        if kind == "flash_attention":
+            q, k, v, kw = args
+            bsz, hq, sq, d = q.shape
+            skv = k.shape[2]
+            pairs = sum(min(i + 1, skv) for i in range(sq)) if kw["causal"] \
+                else sq * skv
+            nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+            return nbytes, 4.0 * bsz * hq * pairs * d
+        if kind == "grouped_matmul":
+            x, eid, w, rt = args
+            nbytes = x.element_size() * (x.numel() + w.numel()
+                                         + x.shape[0] * w.shape[2]) \
+                + eid.numel() * 4
+            return nbytes, 2.0 * x.shape[0] * w.shape[1] * w.shape[2]
+        q, k, v, lengths, kw = args
+        bsz, hq, hd = q.shape
+        n = int(lengths.sum())
+        nbytes = q.element_size() * 2 * q.numel() + lengths.numel() * 4 \
+            + k.element_size() * 2 * n * k.shape[2] * hd
+        return nbytes, 4.0 * n * hq * hd
+
+    print(f"LM kernel phase: operands recorded from one plain bf16 prefill "
+          f"({b} x {s}) and {LM_PLAIN_STEPS} plain decode steps; rule "
+          f"max|kernel - plain| <= {LM_KERNEL_F32_TOL:g} * max|plain| at f32, "
+          f"{LM_BF16_TOL:g} * max|plain| at bf16; ms = device time a call "
+          f"(bf16; {MLP_REPS} calls in one CUDA graph, {GRAPH_REPLAYS} "
+          f"replays), the calls taking turns over copies of the operands "
+          f"that move at least twice the {l2_bytes / 2**20:.0f} MiB L2 "
+          f"between two uses of one copy; 'warm L2' = the kernel on one "
+          f"copy, its operands left in L2); bound at {mem_rate / 1e12:.2f} TB/s and "
+          f"{bf16_rate / 1e12:.0f} TFLOP/s bf16")
+    print(f"{'kernel':16s} {'site':22s} {'shape':26s} {'max':>8s} "
+          f"{'rel f32':>9s} {'rel bf16':>9s} {'kernel':>8s} {'warm L2':>8s} "
+          f"{'plain':>8s} {'library':>8s} {'bound':>8s} {'by':>5s}")
+    stats = {k: {"n": 0, "ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0,
+                 "bytes": 0.0, "ops": 0.0, "err": 0.0}
+             for k in ("flash_attention", "grouped_matmul", "flash_decode")}
+    for kind, site, args in sites:
+        rels = {}
+        for label, dtype in (("f32", torch.float32), ("bf16", None)):
+            kern, plain, _ = calls(kind, args, dtype)
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            scale = float(want.float().abs().max())
+            err = float((got.float() - want.float()).abs().max())
+            rels[label] = err / scale
+            tol = LM_KERNEL_F32_TOL if label == "f32" else LM_BF16_TOL
+            if not (got.shape == want.shape and got.dtype == want.dtype
+                    and bool(got.isfinite().all()) and err <= tol * scale):
+                raise AssertionError(
+                    f"{kind} disagrees with its plain version at {site} "
+                    f"({label}): max abs err {err} against max|plain| "
+                    f"{scale}")
+            if label == "bf16":
+                stats[kind]["err"] = max(stats[kind]["err"], err)
+        nbytes, flops = work(kind, args)
+        copies = cold_copies(args, nbytes, l2_bytes)
+        fns = [calls(kind, a) for a in copies]
+        t = [graph_ms(rotating([f[i] for f in fns]), MLP_REPS)
+             for i in range(3)]
+        warm = graph_ms(fns[0][0], MLP_REPS)
+        del fns, copies
+        b_bytes, b_ops = nbytes / mem_rate * 1e3, flops / bf16_rate * 1e3
+        st = stats[kind]
+        st["n"] += 1
+        for key, val in zip(("ms", "plain", "lib"), t):
+            st[key] += val
+        st["bound"] += max(b_bytes, b_ops)
+        st["bytes"] += b_bytes
+        st["ops"] += b_ops
+        shape = "x".join(str(n) for n in args[0].shape)
+        if kind == "grouped_matmul":
+            shape += f" @ {args[2].shape[1]}->{args[2].shape[2]}"
+        print(f"{kind:16s} {site:22s} {shape:26s} {scale:8.3g} "
+              f"{rels['f32']:9.2e} {rels['bf16']:9.2e} {t[0]:8.4f} "
+              f"{warm:8.4f} {t[1]:8.4f} {t[2]:8.4f} "
+              f"{max(b_bytes, b_ops):8.4f} "
+              f"{'ops' if b_ops >= b_bytes else 'bytes':>5s}")
+
+    # flash attention at the shapes other configs need: window, softcap,
+    # head_dim 128 and 256
+    rng = np.random.default_rng(1)
+    for hd, g, n, kw in ((128, 2, 384, dict(window=100, softcap=30.0)),
+                         (256, 4, 200, dict(window=None, softcap=None)),
+                         (64, 2, 300, dict(window=64, softcap=50.0))):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(
+                np.float32)).to(dev, dtype) for shape in
+                ((2, 2 * g, n, hd), (2, 2, n, hd), (2, 2, n, hd)))
+            got = FAK.flash_attention_cuda(q, k, v, **kw)
+            want = attention_ref(q, k, v, **kw)
+            scale = float(want.float().abs().max())
+            err = float((got.float() - want.float()).abs().max())
+            tol = LM_KERNEL_F32_TOL if dtype == torch.float32 else LM_BF16_TOL
+            print(f"flash_attention hd {hd}, G {g}, S {n}, {kw}, {dtype}: "
+                  f"max abs err {err:.2e}, max|plain| {scale:.3g}")
+            if not err <= tol * scale:
+                raise AssertionError(f"flash_attention disagrees at hd {hd} "
+                                     f"{kw} {dtype}")
+
+    # 9. main path: generate through ServeEngine, timed
+    step_ms = {"prefill": [], "decode": []}
+
+    def timed(fn, key):
+        def run(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            step_ms[key].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+    steps = (engine.prefill_step, engine.decode_step)
+    engine.prefill_step = timed(steps[0], "prefill")
+    engine.decode_step = timed(steps[1], "decode")
+    for mod in (FAK, GMK, FDK):
+        mod.reset_launch_counts()
+    runs = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = engine.generate(prompts, max_new_tokens=LM_NEW)
+        runs.append(((time.perf_counter() - t0) * 1e3, toks))
+    launches = {**FAK.LAUNCHES, **GMK.LAUNCHES, **FDK.LAUNCHES}
+    n_dec = len(step_ms["decode"])
+    want_launch = {"flash_attention": 4 * cfg.n_layers,
+                   "grouped_matmul": 4 * 3 * cfg.n_layers,
+                   "flash_decode": n_dec * cfg.n_layers}
+    print(f"LM main-path launches over 4 generate calls (4 prefills, {n_dec} "
+          f"decode steps): {launches}")
+    if launches != want_launch or n_dec != 4 * LM_NEW:
+        raise AssertionError(f"LM launches {launches}, expected {want_launch}")
+    gen = runs[0][1]
+    if any(not np.array_equal(t, gen) for _, t in runs[1:]):
+        raise AssertionError("generate gave different tokens across runs")
+    if gen.shape != (b, LM_NEW) or gen.min() < 0 or gen.max() >= cfg.vocab_size:
+        raise AssertionError(f"bad generated tokens {gen.shape}")
+    pre_ms = step_ms["prefill"][1:]
+    dec_ms = step_ms["decode"][LM_NEW:]
+    gen_ms = [ms for ms, _ in runs[1:]]
+    med_gen = statistics.median(gen_ms)
+    print(f"LM generate {b} x {s} prompt + {LM_NEW} new tokens: warm-up "
+          f"{runs[0][0]:.1f} ms, timed {[round(v, 1) for v in gen_ms]} ms; "
+          f"prefill {[round(v, 2) for v in pre_ms]} ms (median "
+          f"{statistics.median(pre_ms):.2f}); decode step median "
+          f"{statistics.median(dec_ms):.3f} ms (min {min(dec_ms):.3f}, max "
+          f"{max(dec_ms):.3f}); {b * LM_NEW / med_gen * 1e3:.1f} generated "
+          f"tokens/s end to end, {b / statistics.median(dec_ms) * 1e3:.1f} "
+          f"tokens/s a decode step, {b * s / statistics.median(pre_ms) * 1e3:.0f}"
+          f" prompt tokens/s in prefill")
+    engine.prefill_step, engine.decode_step = steps
+
+    if with_profile:
+        from torch.profiler import ProfilerActivity, profile
+        names = ("flash_attention_kernel", "grouped_matmul_kernel",
+                 "flash_decode_kernel")
+        dev_b = {"tokens": torch.as_tensor(prompts, dtype=torch.int64,
+                                           device=dev),
+                 "positions": torch.arange(s, device=dev).expand(b, s)}
+
+        def decode_batch(tok, pos):
+            return {"tokens": tok[:, None].to(torch.int64),
+                    "positions": torch.full((b, 1), pos, device=dev),
+                    "cache_pos": torch.full((b,), pos, device=dev)}
+
+        def profiled(label, fn, n_steps):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            print(prof.key_averages().table(sort_by="cuda_time_total",
+                                            row_limit=12))
+            events = [e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and not getattr(e, "is_user_annotation", False)]
+            busy = sum(e.time_range.end - e.time_range.start
+                       for e in events) / 1e3
+            per = {k: sum(e.time_range.end - e.time_range.start
+                          for e in events if k in e.name) / 1e3
+                   for k in names}
+            print(f"LM profiled {label}: wall {wall / n_steps:.2f} ms a step, "
+                  f"device events {busy / n_steps:.3f} ms a step over "
+                  f"{len(events)} (busy share {busy / wall:.3f}); "
+                  + ", ".join(f"{k} {v / n_steps:.3f} ms" for k, v in
+                              per.items() if v))
+            return out
+
+        with torch.no_grad():
+            tok, pre = profiled(f"prefill ({b} x {s})",
+                                lambda: engine.prefill_step(engine.params,
+                                                            dev_b), 1)
+            states = engine.place_states(pre, b)
+            del pre
+
+            def four_steps():
+                nonlocal tok, states
+                for j in range(4):
+                    tok, states = engine.decode_step(
+                        engine.params, states, decode_batch(tok, s + j))
+            profiled("decode steps (4)", four_steps, 4)
+            del states
+
+    # 10. correctness: teacher-force the plain path on the kernel path's
+    # tokens, at bf16 (the main path) and f32, with negative controls
+    def check(engine, tokens, label, tol):
+        """Plain and kernel paths teacher-forced on `tokens`; the kernel
+        path's routing may differ from the plain path's only at near ties,
+        and with the plain path's routing imposed its logits must pass
+        `lm_compare` at `tol`.  Returns the plain logits and routing."""
+        plain_routes, kernel_routes = [], []
+        with lm_kernels_through(**plain_lm()), \
+                routes_through(recording_route(plain_routes)):
+            want = teacher_forced(engine, prompts, tokens)
+        with routes_through(recording_route(kernel_routes)):
+            got = teacher_forced(engine, prompts, tokens)
+        steps = [got[0][:, -1]] + got[1:-1]
+        if not all(np.array_equal(g.argmax(-1).cpu().numpy(), tokens[:, t])
+                   for t, g in enumerate(steps)):
+            raise AssertionError(f"LM {label}: teacher-forced kernel logits "
+                                 "do not give the generated tokens")
+        _, n_diff, _, rels = lm_compare(got, want, tol)
+        flips, roots = routing_flips(kernel_routes, plain_routes,
+                                     prompts.shape[0], cfg.n_layers)
+        flip_gap = roots[0][2] if roots else 0.0
+        drops = capacity_drops(plain_routes, cfg.n_experts, cfg.n_layers)
+        print(f"LM {label}, kernel path as generated, against the plain path "
+              f"teacher-forced on its tokens: logit rms {rms(want[0]):.3f}, "
+              f"max|plain| {float(want[0].abs().max()):.3g}; relative error "
+              f"prefill {rels[0]:.2e}, decode steps max {max(rels[1:]):.2e}; "
+              f"greedy tokens differing {n_diff}; expert choices differing "
+              f"at {flips} (token, layer) pairs, {len(roots)} of them roots "
+              f"(outside the reach of an earlier one; the prefill drops "
+              f"{drops} assignments at capacity), the widest root at a "
+              f"top-k gap of {flip_gap:.2e} of p_k (near tie: < "
+              f"{LM_NEAR_TIE[label]:.3g}); roots (layer, position, gap): "
+              f"{[(l, p, float(f'{g:.3g}')) for l, p, g in roots[:6]]}")
+        if flip_gap >= LM_NEAR_TIE[label]:
+            raise AssertionError(f"LM {label}: the kernel path first routes "
+                                 "a token differently without a near tie")
+        del got
+        with routes_through(imposed_route(plain_routes)):
+            got = teacher_forced(engine, prompts, tokens)
+        ok, n_diff, n_close, rels = lm_compare(got, want, tol)
+        print(f"LM {label}, kernel path with the plain path's routing: "
+              f"relative error prefill {rels[0]:.2e}, decode steps max "
+              f"{max(rels[1:]):.2e}; greedy tokens differing {n_diff} of "
+              f"{sum(g.shape[0] * (g.shape[1] if g.dim() == 3 else 1) for g in got)}"
+              f", {n_close} tolerated (top-2 gap < {tol:g} * max|plain|)")
+        if not ok:
+            raise AssertionError(f"LM {label}: kernel path differs from the "
+                                 f"plain path beyond {tol:g} * max|plain|")
+        return want, plain_routes
+
+    check(engine, gen, "bf16", LM_BF16_PATH_TOL)
+    del engine
+    engine32 = ServeEngine(model, params, ServeConfig(
+        max_len=LM_MAX_LEN, compute_dtype=torch.float32,
+        cache_dtype=torch.float32), device=dev)
+    gen32 = engine32.generate(prompts, max_new_tokens=LM_NEW)
+    print(f"LM f32 generate: tokens equal to the bf16 run's "
+          f"{float((gen32 == gen).mean()):.3f}")
+    want, plain_routes = check(engine32, gen32, "f32", LM_F32_TOL)
+
+    real_gmm = GMK.grouped_matmul_cuda
+    real_fd = FDK.flash_decode_cuda
+
+    def fa_skip_last_tile(q, k, v, causal=True, window=None, softcap=None,
+                          scale=None):
+        """Plain attention without the last kv tile (64 keys) that each
+        CTA's block of 64 / G query positions reads."""
+        g = q.shape[1] // k.shape[1]
+        bq = FAK.ROWS_PER_CTA // g
+        n = q.shape[2]
+        qpos = torch.arange(n, device=q.device)[:, None]
+        kpos = torch.arange(k.shape[2], device=q.device)[None, :]
+        last_tile = ((qpos // bq) * bq + bq - 1).clamp(max=n - 1) // 64
+        keep = (kpos <= qpos) & (kpos // 64 != last_tile)
+        qg = q.reshape(q.shape[0], k.shape[1], g, n, -1).float() * scale
+        sc = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float())
+        sc = torch.where(keep, sc, -1e30)
+        p = torch.softmax(sc, -1) * keep.any(-1)[:, None].to(sc.dtype)
+        out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
+        return out.reshape(q.shape).to(q.dtype)
+
+    def gmm_zero_expert(x, tile_eid, weights, row_tile=128):
+        out = real_gmm(x, tile_eid, weights, row_tile)
+        out.view(-1, row_tile, out.shape[1])[tile_eid == 0] = 0
+        return out
+
+    def fd_short(q, k, v, lengths, *, softcap=None, scale=None):
+        return real_fd(q, k, v, lengths.to(torch.int32) - 1, softcap=softcap,
+                       scale=scale)
+
+    controls = [("flash_attention skipping its last kv tile",
+                 dict(fa=fa_skip_last_tile)),
+                ("grouped_matmul writing expert 0's tiles as zeros",
+                 dict(gmm=gmm_zero_expert)),
+                ("flash_decode reading lengths - 1", dict(fd=fd_short))]
+    want_c = want[:LM_CONTROL_STEPS + 1]
+    for what, stand_in in controls:
+        with lm_kernels_through(**stand_in), \
+                routes_through(imposed_route(plain_routes)):
+            bad = teacher_forced(engine32, prompts, gen32, LM_CONTROL_STEPS)
+        ok_c, nd, _, rels_c = lm_compare(bad, want_c, LM_F32_TOL)
+        print(f"LM negative control (f32, plain routing), {what}: relative "
+              f"error prefill {rels_c[0]:.2e}, decode max "
+              f"{max(rels_c[1:]):.2e}, tokens differing {nd} -> "
+              f"{'ACCEPTED' if ok_c else 'rejected'}")
+        if ok_c:
+            raise AssertionError(f"the LM check accepts a run with {what}")
+    del want, want_c, engine32
+    print(f"LM part: {time.perf_counter() - t_lm:.1f} s wall")
+
+    src = "src/repro_torch/kernels/{0}/csrc/{0}.cu"
+    replaces = {
+        "grouped_matmul":
+            "src/repro/kernels/grouped_matmul/grouped_matmul.py:48",
+        "flash_attention":
+            "src/repro/kernels/flash_attention/flash_attention.py:96",
+        "flash_decode": "src/repro/kernels/flash_decode/flash_decode.py:79"}
+    per = {"grouped_matmul": "one call at the prefill's shape, mean over "
+                             "layers 0 and 23 (w_in, w_gate, w_out); 72 a "
+                             "prefill",
+           "flash_attention": "one call at the prefill's shape, mean over "
+                              "layers 0 and 23; 24 a prefill",
+           "flash_decode": "one call at a decode step's shape, mean over "
+                           "layers 0 and 23; 24 a step"}
+    entries = []
+    for name in ("grouped_matmul", "flash_attention", "flash_decode"):
+        st = stats[name]
+        n = st["n"]
+        entries.append({
+            "name": name, "route": "cuda", "source": src.format(name),
+            "replaces": replaces[name], "launches": launches[name],
+            "max_abs_err": st["err"], "ms": st["ms"] / n,
+            "plain_ms": st["plain"] / n, "bound_ms": st["bound"] / n,
+            "bound_by": "operations" if st["ops"] >= st["bytes"] else "bytes",
+            "library_ms": st["lib"] / n,
+            "library": {"grouped_matmul": "torch.bmm over the (E, capacity, "
+                                          "Cin) view",
+                        "flash_attention": "scaled_dot_product_attention("
+                                           "is_causal, enable_gqa)",
+                        "flash_decode": "scaled_dot_product_attention over "
+                                        "k[:, :L] (enable_gqa)"}[name],
+            "timing": "device ms a call: 20 calls in one CUDA graph (bf16)",
+            "per": per[name]})
+    return entries
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -715,6 +1426,9 @@ def main(argv) -> int:
 
     point_launches, mlp = point_phases(dev, mem_rate, flop_rate,
                                        "--profile" in argv)
+    lm_kernels = lm_phases(dev, mem_rate,
+                           BF16_PEAKS["pcie" if "PCIe" in name else "sxm"],
+                           "--profile" in argv)
 
     if "--profile" in argv:
         from torch.profiler import ProfilerActivity, profile
@@ -763,7 +1477,7 @@ def main(argv) -> int:
          "timing": "device ms a call: 20 calls in one CUDA graph",
          "per": "one PointNet++(s) forward (16 x 4096): sum over its 6 "
                 "groups"},
-    ]
+    ] + lm_kernels
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

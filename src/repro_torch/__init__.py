@@ -16,6 +16,13 @@ found under the same path:
                                              F-PointNet++
     repro_torch.models.params                parameter trees, JAX weights
     repro_torch.serve.engine                 PointCloudEngine.segment
+    repro_torch.configs                      ArchConfig, granite-moe-1b
+    repro_torch.models.layers / moe / lm     LM layers, sorted MoE, LM
+    repro_torch.models.registry              build(cfg) -> Model
+    repro_torch.kernels.flash_attention      hand-written Hopper kernels:
+    repro_torch.kernels.flash_decode           prefill attention, decode
+    repro_torch.kernels.grouped_matmul         attention, expert matmul
+    repro_torch.serve.lm                     ServeEngine.generate
 
 Entry points run on the card.  The CPU is opt-in (`device="cpu"`), where
 every kernel wrapper takes its plain PyTorch version.  The package imports

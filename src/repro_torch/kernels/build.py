@@ -21,6 +21,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 PKG_DIR = Path(__file__).resolve().parent
 BUILD_ROOT = PKG_DIR.parents[2] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -95,3 +97,13 @@ def load(name: str) -> ctypes.CDLL:
                 raise KeyError(f"no CUDA source csrc/{name}.cu in {PKG_DIR}")
             _libs[name] = ctypes.CDLL(str(libs[name]))
         return _libs[name]
+
+
+def device_operand(t: torch.Tensor, what: str, device) -> int:
+    """The data pointer of `t` for a launch on `device`; raises unless `t`
+    lies there and is contiguous."""
+    if t.device != device:
+        raise ValueError(f"{what} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what} must be contiguous")
+    return t.data_ptr()

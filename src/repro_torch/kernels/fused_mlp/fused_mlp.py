@@ -107,14 +107,6 @@ def _check(x, weights, biases):
     return widths
 
 
-def _device_operand(t: torch.Tensor, what: str, device) -> int:
-    if t.device != device:
-        raise ValueError(f"{what} is on {t.device}, expected {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{what} must be contiguous")
-    return t.data_ptr()
-
-
 def fused_mlp_cuda(x: torch.Tensor, weights: Sequence[torch.Tensor],
                    biases: Sequence[torch.Tensor],
                    final_act: bool = True) -> torch.Tensor:
@@ -127,10 +119,10 @@ def fused_mlp_cuda(x: torch.Tensor, weights: Sequence[torch.Tensor],
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got {x.device}")
     dev = x.device
     n = x.shape[0]
-    xp = _device_operand(x, "x", dev)
-    wp = [_device_operand(w, f"weights[{i}]", dev)
+    xp = build.device_operand(x, "x", dev)
+    wp = [build.device_operand(w, f"weights[{i}]", dev)
           for i, w in enumerate(weights)]
-    bp = [_device_operand(b, f"biases[{i}]", dev)
+    bp = [build.device_operand(b, f"biases[{i}]", dev)
           for i, b in enumerate(biases)]
     out = torch.empty((n, widths[-1]), dtype=x.dtype, device=dev)
     if n == 0:

@@ -1,0 +1,208 @@
+"""Shared LM layers: RoPE, RMSNorm, GQA attention (train/prefill/decode),
+gated MLP — the port of the reference's `models/layers.py`.
+
+Prefill (and train) attention runs through `kernels.flash_attention.ops`
+and each decode step's attention through `kernels.flash_decode.ops`, where
+the reference's model code calls the plain `attention_ref` and the masked
+`_decode_attention`; both compute the same function (ROADMAP Queue
+B.5-B.6).  Parameters are nested dicts of tensors with the reference's keys.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch import nn
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_decode import ops as fd_ops
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def norm_init(cfg: ArchConfig, d: int, device=None):
+    return nn.rmsnorm_init(d, device)
+
+
+def norm_apply(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
+    return nn.rmsnorm(p, x)
+
+
+def act_fn(name: str):
+    """The reference's activations; jax.nn.gelu is the tanh form."""
+    return {"silu": F.silu,
+            "gelu": lambda x: F.gelu(x, approximate="tanh"),
+            "relu": F.relu}[name]
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def _rope_angles(positions: torch.Tensor, head_dim: int,
+                 theta: float) -> torch.Tensor:
+    """positions (B, S) -> angles (B, S, head_dim//2).
+
+    The inverse frequencies are theta ** -(arange(half) / half * 2), as in
+    the reference.
+    """
+    half = head_dim // 2
+    expo = torch.arange(0, half, dtype=torch.float32,
+                        device=positions.device) / half * 2.0 + 0.0
+    inv_freq = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                            device=positions.device), expo)
+    return positions[..., None].to(torch.float32) * inv_freq
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x (B, S, H, head_dim); split-halves rotation in float32, cast back."""
+    half = x.shape[-1] // 2
+    ang = _rope_angles(positions, x.shape[-1], theta)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    xf1 = x[..., :half].to(torch.float32)
+    xf2 = x[..., half:].to(torch.float32)
+    out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+class KVCache(NamedTuple):
+    k: torch.Tensor   # (B, S_max, Hkv, head_dim)
+    v: torch.Tensor
+
+
+def attention_init(gen: torch.Generator, cfg: ArchConfig):
+    d, h, hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    hd = cfg.resolved_head_dim
+    return {
+        "wq": nn.dense_init(gen, d, h * hd, use_bias=cfg.qkv_bias),
+        "wk": nn.dense_init(gen, d, hkv * hd, use_bias=cfg.qkv_bias),
+        "wv": nn.dense_init(gen, d, hkv * hd, use_bias=cfg.qkv_bias),
+        "wo": nn.dense_init(gen, h * hd, d, use_bias=False),
+    }
+
+
+def _decode_attention(q, cache: KVCache, valid, softcap, scale):
+    """q (B, 1, H, hd) against a cache with an explicit (B, S) validity
+    mask: the plain masked path of the reference."""
+    b, _, h, hd = q.shape
+    hkv = cache.k.shape[2]
+    g = h // hkv
+    qg = q.reshape(b, hkv, g, hd).to(torch.float32) * scale
+    k = cache.k.to(torch.float32)                      # (B, S, Hkv, hd)
+    v = cache.v.to(torch.float32)
+    s = torch.einsum("bhgd,bshd->bhgs", qg, k)
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    s = torch.where(valid[:, None, None, :], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", p, v)
+    return out.reshape(b, 1, h * hd).to(q.dtype)
+
+
+def attention_apply(p, cfg: ArchConfig, x: torch.Tensor,
+                    positions: torch.Tensor, *, layer_window: Optional[int],
+                    mode: str, cache: Optional[KVCache] = None,
+                    cache_pos=None):
+    """x (B, S, D).  mode: train | prefill | decode.
+
+    decode: S == 1, cache_pos (B,) current position; the new K/V are
+    written into `cache` in place (slot `cache_pos`, or `cache_pos % S` in
+    a ring buffer), and the cache is returned.
+    Returns (out, new_cache_or_None).
+    """
+    b, s, d = x.shape
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    scale = 1.0 / math.sqrt(hd)
+
+    q = nn.dense(p["wq"], x).reshape(b, s, h, hd)
+    k = nn.dense(p["wk"], x).reshape(b, s, hkv, hd)
+    v = nn.dense(p["wv"], x).reshape(b, s, hkv, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+
+    new_cache = None
+    if mode == "decode":
+        assert s == 1 and cache is not None
+        s_cache = cache.k.shape[1]
+        ring = layer_window is not None and s_cache <= layer_window
+        # SWA layers keep a ring buffer of exactly `window` slots; rope is
+        # applied at absolute positions before caching
+        slot = cache_pos % s_cache if ring else cache_pos
+        rows = torch.arange(b, device=x.device)
+        cache.k[rows, slot] = k[:, 0].to(cache.k.dtype)
+        cache.v[rows, slot] = v[:, 0].to(cache.v.dtype)
+        new_cache = cache
+        if layer_window is not None and not ring:
+            # a windowed cache longer than its window: the valid slots are
+            # no prefix, so no `lengths` describes them
+            if x.device.type != "cpu":
+                raise NotImplementedError(
+                    "flash_decode takes a valid prefix of the cache; a "
+                    f"window-{layer_window} layer over a {s_cache}-slot cache "
+                    "has none")
+            kpos = torch.arange(s_cache, device=x.device)[None, :]
+            valid = (kpos <= cache_pos[:, None]) \
+                & (kpos > cache_pos[:, None] - layer_window)
+            out = _decode_attention(q, new_cache, valid, cfg.attn_softcap,
+                                    scale)
+        else:
+            # full attention, or a ring buffer: the first min(pos + 1, S)
+            # slots are valid
+            lengths = torch.clamp(cache_pos + 1, max=s_cache).to(torch.int32)
+            out = fd_ops.flash_decode(q[:, 0], cache.k, cache.v, lengths,
+                                      softcap=cfg.attn_softcap, scale=scale)
+            out = out.reshape(b, 1, h * hd)
+    else:
+        if mode == "prefill":
+            new_cache = KVCache(k, v)
+        out = fa_ops.flash_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=True, window=layer_window, softcap=cfg.attn_softcap,
+            scale=scale)
+        out = out.transpose(1, 2).reshape(b, s, h * hd)
+
+    return nn.dense(p["wo"], out), new_cache
+
+
+def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int,
+                  dtype=torch.bfloat16, device=None) -> KVCache:
+    hd = cfg.resolved_head_dim
+    shape = (batch, max_len, cfg.n_kv_heads, hd)
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device))
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def mlp_init(gen: torch.Generator, cfg: ArchConfig,
+             d_ff: Optional[int] = None):
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    p = {"wi": nn.dense_init(gen, d, f, use_bias=False),
+         "wo": nn.dense_init(gen, f, d, use_bias=False)}
+    if cfg.gated_mlp:
+        p["wg"] = nn.dense_init(gen, d, f, use_bias=False)
+    return p
+
+
+def mlp_apply(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    act = act_fn(cfg.act)
+    h = nn.dense(p["wi"], x)
+    if "wg" in p:
+        h = act(nn.dense(p["wg"], x)) * h
+    else:
+        h = act(h)
+    return nn.dense(p["wo"], h)

@@ -4,7 +4,9 @@ A model's weights live in a `ParamTree`, an `nn.Module` whose `state_dict`
 keys are the reference's parameter-tree paths joined by "."
 (`enc.0.blocks.1.n1.scale`, `sa1.mlp.fc0.w`); `tree()` gives the nested
 dict the forward reads, and `load_jax_params` copies a reference tree (as
-numpy) into it.
+numpy) into it.  An LM's stacked body leaves (`layers.sub0.mix.wq.w` of
+shape (n_bodies, d, h * hd), made by `jax.vmap` in the reference) stay
+stacked, so keys and shapes match one to one.
 """
 
 from __future__ import annotations
@@ -34,6 +36,19 @@ class ParamTree(torch.nn.Module):
         if self._is_list:
             return [out[str(i)] for i in range(len(out))]
         return out
+
+
+def tree_map(fn, *trees):
+    """`fn` over the leaves of nested dicts / lists / NamedTuples of
+    tensors with the same structure; the result keeps that structure."""
+    t0 = trees[0]
+    if isinstance(t0, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in t0}
+    if isinstance(t0, tuple) and hasattr(t0, "_fields"):
+        return type(t0)(*(tree_map(fn, *xs) for xs in zip(*trees)))
+    if isinstance(t0, (list, tuple)):
+        return type(t0)(tree_map(fn, *xs) for xs in zip(*trees))
+    return fn(*trees)
 
 
 def flatten_tree(tree, prefix=""):

@@ -9,14 +9,22 @@ from typing import Sequence
 import torch
 
 from repro_torch.kernels.fused_mlp.ref import chain_operands, fused_mlp_ref
+from repro_torch.models.params import tree_map
 
 LN_EPS = 1e-6  # the reference's layernorm eps (torch's default is 1e-5)
 
 
 def uniform_init(gen: torch.Generator, shape, scale: float) -> torch.Tensor:
-    """Uniform in [-scale, scale) from `gen`, float32 on the CPU."""
-    return (torch.rand(shape, generator=gen, dtype=torch.float32) * 2 - 1) \
-        * scale
+    """Uniform in [-scale, scale) from `gen`, float32 on the generator's
+    device (a CUDA generator draws on the card)."""
+    return (torch.rand(shape, generator=gen, dtype=torch.float32,
+                       device=gen.device) * 2 - 1) * scale
+
+
+def normal_init(gen: torch.Generator, shape, std: float) -> torch.Tensor:
+    """Normal(0, std**2) from `gen`, float32 on the generator's device."""
+    return torch.randn(shape, generator=gen, dtype=torch.float32,
+                       device=gen.device) * std
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
@@ -24,7 +32,7 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int,
     """The reference's `dense_init`: w uniform +-1/sqrt(fan_in), zero b."""
     p = {"w": uniform_init(gen, (d_in, d_out), 1.0 / math.sqrt(max(1, d_in)))}
     if use_bias:
-        p["b"] = torch.zeros(d_out)
+        p["b"] = torch.zeros(d_out, device=gen.device)
     return p
 
 
@@ -60,3 +68,32 @@ def layernorm(p, x: torch.Tensor, eps: float = LN_EPS) -> torch.Tensor:
     var = (xf - mu).square().mean(dim=-1, keepdim=True)
     y = (xf - mu) * torch.rsqrt(var + eps)
     return (y * p["scale"] + p["bias"]).to(x.dtype)
+
+
+def rmsnorm_init(d: int, device=None):
+    return {"scale": torch.ones(d, device=device)}
+
+
+def rmsnorm(p, x: torch.Tensor, eps: float = LN_EPS) -> torch.Tensor:
+    """RMSNorm over the last axis with the reference's arithmetic: mean of
+    squares and rsqrt(ms + eps) in float32, `y * scale`, cast back."""
+    xf = x.to(torch.float32)
+    ms = xf.square().mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(ms + eps)
+    return (y * p["scale"]).to(x.dtype)
+
+
+def embedding_init(gen: torch.Generator, vocab: int, d: int):
+    """The reference's `embedding_init`: normal * 0.02."""
+    return {"emb": normal_init(gen, (vocab, d), 0.02)}
+
+
+def embed(p, ids: torch.Tensor) -> torch.Tensor:
+    return p["emb"][ids]
+
+
+def cast_floating(tree, dtype):
+    """Cast the floating leaves of a nested dict/list/NamedTuple of tensors
+    to `dtype` (a leaf already in `dtype` is returned as is)."""
+    return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x,
+                    tree)

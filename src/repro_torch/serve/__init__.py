@@ -1,1 +1,1 @@
-"""Point-cloud serving."""
+"""Serving: point clouds (`engine`) and token LMs (`lm`)."""

@@ -6,7 +6,7 @@ Imports neither jax nor the reference, so it runs on a GPU host as is:
 Without a CUDA device every case skips, from inside the test.
 
 Tolerance: atol = rtol = 1e-4 — float32 sums taken in another order;
-2e-2 for the fused MLP in bfloat16 (one bf16 rounding of the output).
+2e-2 in bfloat16 (one bf16 rounding of the output).
 """
 
 import numpy as np
@@ -92,3 +92,101 @@ def test_fused_mlp_kernel_matches_plain_version(widths, final_act, n, dtype):
                                fused_mlp_ref(x, ws, bs, final_act).float(),
                                **tol)
     assert F.LAUNCHES["fused_mlp"] == before + 1
+
+
+def _cuda(rng, shape, dtype, scale=1.0):
+    return torch.from_numpy(
+        np.asarray(rng.normal(size=shape) * scale, np.float32)).to(
+        "cuda", getattr(torch, dtype))
+
+
+def _tol(dtype):
+    return TOL if dtype == "float32" else dict(rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd,g,sq,skv,causal,window,softcap", [
+    (64, 2, 512, 512, True, None, None),    # the LM prefill's shape class
+    (64, 1, 300, 300, True, None, None),    # odd S: ragged q and kv tiles
+    (128, 4, 200, 333, False, None, 30.0),  # cross lengths, softcap
+    (256, 2, 190, 190, True, 50, None),     # sliding window, widest head
+    (8, 8, 70, 70, True, 16, 20.0)])
+def test_flash_attention_kernel_matches_plain_version(hd, g, sq, skv, causal,
+                                                      window, softcap, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.kernels.flash_attention import flash_attention as F
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    rng = np.random.default_rng(hd + sq)
+    q = _cuda(rng, (2, 2 * g, sq, hd), dtype)
+    k = _cuda(rng, (2, 2, skv, hd), dtype)
+    v = _cuda(rng, (2, 2, skv, hd), dtype)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    before = F.LAUNCHES["flash_attention"]
+    got = F.flash_attention_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(),
+                               attention_ref(q, k, v, **kw).float(),
+                               **_tol(dtype))
+    assert F.LAUNCHES["flash_attention"] == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
+    ("float32", "float32"), ("bfloat16", "bfloat16"),
+    ("float32", "bfloat16")])
+@pytest.mark.parametrize("hd,g,s,softcap", [
+    (64, 2, 1024, None), (128, 4, 301, 30.0), (256, 1, 77, None)])
+def test_flash_decode_kernel_matches_plain_version(hd, g, s, softcap, q_dtype,
+                                                   kv_dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.kernels.flash_decode import flash_decode as F
+    from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+    rng = np.random.default_rng(hd + s)
+    b, hkv = 4, 2
+    q = _cuda(rng, (b, hkv * g, hd), q_dtype)
+    k = _cuda(rng, (b, s, hkv, hd), kv_dtype)
+    v = _cuda(rng, (b, s, hkv, hd), kv_dtype)
+    lengths = torch.tensor([0, s, 1, s // 2 + 3], dtype=torch.int32,
+                           device="cuda")
+    before = F.LAUNCHES["flash_decode"]
+    got = F.flash_decode_cuda(q, k, v, lengths, softcap=softcap)
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype and got.shape == q.shape
+    want = flash_decode_ref(q, k, v, lengths, softcap=softcap)
+    tol = _tol("bfloat16" if "bfloat16" in (q_dtype, kv_dtype) else
+               "float32")
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    # an empty sequence reads nothing and writes zeros, as the Pallas
+    # kernel does
+    assert bool((got[0] == 0).all())
+    assert F.LAUNCHES["flash_decode"] == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("row_tile,eids,cin,cout", [
+    (128, [3, 3, 0, 5, 1, 1, 1, 2], 1024, 512),   # unequal segments
+    (64, [2, 0, 2, 7, 7], 200, 300),             # odd widths, revisits
+    (128, [0], 512, 1024)])
+def test_grouped_matmul_kernel_matches_plain_version(row_tile, eids, cin, cout,
+                                                     dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.kernels.grouped_matmul import grouped_matmul as F
+    from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref
+    rng = np.random.default_rng(cin + cout)
+    x = _cuda(rng, (row_tile * len(eids), cin), dtype)
+    w = _cuda(rng, (8, cin, cout), dtype, scale=cin ** -0.5)
+    eid = torch.tensor(eids, dtype=torch.int32, device="cuda")
+    before = F.LAUNCHES["grouped_matmul"]
+    got = F.grouped_matmul_cuda(x, eid, w, row_tile)
+    torch.cuda.synchronize()
+    assert got.dtype == x.dtype and got.shape == (x.shape[0], cout)
+    torch.testing.assert_close(got.float(),
+                               grouped_matmul_ref(x, eid, w, row_tile).float(),
+                               **_tol(dtype))
+    assert F.LAUNCHES["grouped_matmul"] == before + 1

@@ -1,0 +1,271 @@
+"""Port parity, end to end, of the LM serving path on reduced
+granite-moe-1b-a400m (4 layers, d_model 64, 4 / 2 heads, 8 experts top-4,
+vocab 256): the reference's weights carried across by `load_jax_params`,
+against the reference under `jax.jit`.
+
+float32: prefill logits and K/V states, decode logits and the updated
+cache within atol = rtol = 1e-4 (float32 sums in another order), generated
+tokens equal.  bfloat16: XLA and PyTorch round at other places, so where
+two experts' router logits tie to within bf16 precision the two may route a
+token differently (top-4 of 8 experts over d_model 64 ties often).  The
+bf16 check therefore holds (a) the first routing difference of each
+sequence to a near tie (a gap between the top-k-th and the next router
+logit below 2^-6 of the token's largest router logit: two bf16 roundings),
+and (b) with the reference's routing imposed on the port, every prefill
+and decode logit to within 2e-2 of the reference's.  On the CPU every
+kernel wrapper takes its plain version: no launch is counted.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as RC
+from repro.models import moe as RM
+from repro.models import registry as RR
+from repro.serve.lm import ServeConfig as RServeConfig
+from repro.serve.lm import ServeEngine as RServeEngine
+from repro_torch.configs import get as tget
+from repro_torch.kernels.flash_attention import flash_attention as FA
+from repro_torch.kernels.flash_decode import flash_decode as FD
+from repro_torch.kernels.grouped_matmul import grouped_matmul as GM
+from repro_torch.models import moe as TM
+from repro_torch.models import registry as TR
+from repro_torch.models.params import flatten_tree, load_jax_params
+from repro_torch.serve.lm import ServeConfig, ServeEngine
+
+ARCH = "granite-moe-1b-a400m"
+TOL = dict(rtol=1e-4, atol=1e-4)
+BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+NEAR_TIE = 2.0 ** -6     # router-logit gap, relative to the largest logit
+B, S, MAX_LEN = 2, 12, 64
+
+
+@pytest.fixture(scope="module")
+def granite():
+    """(reference model, reference params, port model, port params)."""
+    rcfg = RC.get(ARCH, reduced=True)
+    rmodel = RR.build(rcfg)
+    rparams = jax.jit(rmodel.init)(jax.random.key(0))
+    tmodel = TR.build(tget(ARCH, reduced=True))
+    module = tmodel.init(torch.Generator().manual_seed(0), device="cpu")
+    load_jax_params(module, jax.tree_util.tree_map(np.asarray, rparams))
+    return rmodel, rparams, tmodel, module
+
+
+@pytest.fixture(scope="module")
+def prompts():
+    return np.random.default_rng(0).integers(0, 256, (B, S)).astype(np.int32)
+
+
+def _batches(prompts):
+    pos = np.broadcast_to(np.arange(S), (B, S))
+    rb = {"tokens": jnp.asarray(prompts), "positions": jnp.asarray(pos)}
+    tb = {"tokens": torch.from_numpy(prompts).long(),
+          "positions": torch.from_numpy(np.ascontiguousarray(pos)).long()}
+    return rb, tb
+
+
+def _reference_steps(rmodel, rparams, prompts, dtype):
+    """The reference's prefill, its states placed in a MAX_LEN cache, and
+    one decode step at position S with the prefill's greedy token."""
+    rb, _ = _batches(prompts)
+    cast = jax.tree_util.tree_map(lambda x: x.astype(dtype), rparams)
+    logits, states, aux = jax.jit(rmodel.prefill)(cast, rb)
+    init = rmodel.init_state(B, MAX_LEN, dtype)
+    cache = jax.tree_util.tree_map(
+        lambda d, s: d.at[:, :, :S].set(s.astype(d.dtype)), init, states)
+    tok = jnp.argmax(logits[:, -1], -1).astype(jnp.int32)
+    db = {"tokens": tok[:, None], "positions": jnp.full((B, 1), S, jnp.int32),
+          "cache_pos": jnp.full((B,), S, jnp.int32)}
+    dlogits, dstates, _ = jax.jit(rmodel.decode)(cast, db, cache)
+    return ([np.asarray(x, np.float32) for x in (logits, aux, dlogits)],
+            jax.tree_util.tree_map(lambda x: np.asarray(x, np.float32),
+                                   (states, dstates)), np.asarray(tok))
+
+
+def _port_steps(tmodel, module, prompts, dtype, tok=None):
+    """The port's prefill and one decode step, as `_reference_steps`; the
+    decode step takes `tok` (B,) where given, else the greedy token."""
+    _, tb = _batches(prompts)
+    eng = ServeEngine(tmodel, module, ServeConfig(
+        max_len=MAX_LEN, cache_dtype=dtype, compute_dtype=dtype),
+        device="cpu")
+    logits, states, aux = tmodel.prefill(eng.params, tb)
+    cache = eng.place_states(states, B)
+    tok = logits[:, -1].argmax(-1) if tok is None else torch.from_numpy(
+        np.array(tok)).long()
+    db = {"tokens": tok[:, None], "positions": torch.full((B, 1), S),
+          "cache_pos": torch.full((B,), S)}
+    dlogits, dstates, _ = tmodel.decode(eng.params, db, cache)
+    return ([x.float().numpy() for x in (logits, aux, dlogits)],
+            (states, dstates), tok.numpy())
+
+
+def test_param_tree_keys_and_shapes_match_reference(granite):
+    _, rparams, tmodel, module = granite
+    want = {k: np.shape(v) for k, v in flatten_tree(
+        jax.tree_util.tree_map(np.asarray, rparams))}
+    got = {k: tuple(v.shape) for k, v in module.state_dict().items()}
+    assert got == want
+    # the bodies stay stacked on a leading n_bodies axis, as jax.vmap made them
+    assert got["layers.sub0.ffn.w_in"] == (4, 8, 64, 32)
+    assert got["layers.sub0.mix.wq.w"] == (4, 64, 64)
+
+
+def test_prefill_and_decode_match_reference_f32(granite, prompts):
+    rmodel, rparams, tmodel, module = granite
+    before = (FA.LAUNCHES["flash_attention"], FD.LAUNCHES["flash_decode"],
+              GM.LAUNCHES["grouped_matmul"])
+    (rl, raux, rdl), (rstates, rdstates), rtok = _reference_steps(
+        rmodel, rparams, prompts, jnp.float32)
+    (tl, taux, tdl), (tstates, tdstates), ttok = _port_steps(
+        tmodel, module, prompts, torch.float32)
+    np.testing.assert_allclose(tl, rl, **TOL)
+    np.testing.assert_allclose(taux, raux, **TOL)
+    np.testing.assert_array_equal(ttok, rtok)
+    for name in ("k", "v"):
+        np.testing.assert_allclose(
+            getattr(tstates["sub0"], name).numpy(),
+            getattr(rstates["sub0"], name), **TOL)
+        np.testing.assert_allclose(
+            getattr(tdstates["sub0"], name).numpy(),
+            getattr(rdstates["sub0"], name), **TOL)
+    np.testing.assert_allclose(tdl, rdl, **TOL)
+    assert (FA.LAUNCHES["flash_attention"], FD.LAUNCHES["flash_decode"],
+            GM.LAUNCHES["grouped_matmul"]) == before
+
+
+def test_prefill_and_decode_match_reference_bf16(granite, prompts,
+                                                 monkeypatch):
+    rmodel, rparams, tmodel, module = granite
+    topk = 4
+    # the reference's routing, in call order (4 prefill, 4 decode layers),
+    # pulled to the host from inside its jitted layer scan
+    rroutes = []
+    rroute = RM.route
+
+    def recorded(p, cfg, x2d):
+        out = rroute(p, cfg, x2d)
+        jax.debug.callback(lambda i: rroutes.append(np.asarray(i)), out[1],
+                           ordered=True)
+        return out
+    monkeypatch.setattr(RM, "route", recorded)
+    (rl, _, rdl), _, rtok = _reference_steps(rmodel, rparams, prompts,
+                                             jnp.bfloat16)
+    assert len(rroutes) == 8
+
+    # (a) the port's own routing differs only at near ties
+    troute, seen = TM.route, []
+
+    def own(p, cfg, x2d):
+        out = troute(p, cfg, x2d)
+        seen.append((out[1].numpy(),
+                     (x2d @ p["router"]["w"]).float().numpy()))
+        return out
+    monkeypatch.setattr(TM, "route", own)
+    _port_steps(tmodel, module, prompts, torch.bfloat16, tok=rtok)
+    first = {}                              # sequence -> (position, layer)
+    for layer, ((idx, _), want) in enumerate(zip(seen, rroutes)):
+        diff = (np.sort(idx, -1) != np.sort(want, -1)).any(-1)
+        for t in np.flatnonzero(diff):
+            b, pos = divmod(int(t), S if layer < 4 else 1)
+            pos += 0 if layer < 4 else S
+            if (pos, layer) < first.get(b, (S + 1, 0)):
+                first[b] = (pos, layer)
+    for b, (pos, layer) in first.items():
+        t = b * S + pos if layer < 4 else b
+        lg = np.sort(seen[layer][1][t])[::-1]
+        assert lg[topk - 1] - lg[topk] < NEAR_TIE * np.abs(lg).max(), (
+            f"sequence {b} routes position {pos} differently at call "
+            f"{layer} without a near tie")
+
+    # (b) with the reference's routing imposed, the logits agree
+    calls = iter(rroutes)
+
+    def imposed(p, cfg, x2d):
+        gates, idx, aux = troute(p, cfg, x2d)
+        idx = torch.from_numpy(np.array(next(calls))).long()
+        probs = torch.softmax((x2d @ p["router"]["w"]).float(), dim=-1)
+        g = probs.gather(1, idx)
+        return (g / g.sum(-1, keepdim=True)).to(x2d.dtype), idx, aux
+    monkeypatch.setattr(TM, "route", imposed)
+    (tl, _, tdl), _, _ = _port_steps(tmodel, module, prompts, torch.bfloat16,
+                                     tok=rtok)
+    np.testing.assert_allclose(tl, rl, **BF16_TOL)
+    np.testing.assert_allclose(tdl, rdl, **BF16_TOL)
+
+
+def test_generate_matches_reference_tokens_f32(granite, prompts):
+    rmodel, rparams, tmodel, module = granite
+    want = RServeEngine(rmodel, rparams, RServeConfig(
+        max_len=MAX_LEN, cache_dtype=jnp.float32,
+        compute_dtype=jnp.float32)).generate(prompts, max_new_tokens=6)
+    eng = ServeEngine(tmodel, module, ServeConfig(
+        max_len=MAX_LEN, cache_dtype=torch.float32,
+        compute_dtype=torch.float32), device="cpu")
+    got = eng.generate(prompts, max_new_tokens=6)
+    assert got.dtype == np.int32 and got.shape == (B, 6)
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
+def test_device_policy(granite, monkeypatch):
+    _, _, tmodel, module = granite
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    gen = torch.Generator().manual_seed(0)
+    for call in (lambda: ServeEngine(tmodel, module, ServeConfig()),
+                 lambda: tmodel.init(gen),
+                 lambda: tmodel.init_state(1, 8),
+                 lambda: ServeEngine(tmodel, module, ServeConfig(),
+                                     device="cuda")):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call()
+    eng = ServeEngine(tmodel, module, ServeConfig(max_len=16), device="cpu")
+    assert eng.device.type == "cpu"
+    assert eng.params["layers"]["sub0"]["mix"]["wq"]["w"].dtype == \
+        torch.bfloat16
+    out = eng.generate(np.zeros((1, 3), np.int32), max_new_tokens=2)
+    assert out.shape == (1, 2) and ((out >= 0) & (out < 256)).all()
+
+
+def test_unported_paths_raise():
+    from repro_torch.models import moe as TM
+    with pytest.raises(NotImplementedError, match="A.12"):
+        TM.moe_apply(None, None, None, impl="ep")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TR.build(tget(ARCH).replace(family="audio"))
+    cfg = tget(ARCH, reduced=True).replace(ssm_type="mamba", attn_every=2,
+                                           block_pattern=2)
+    with pytest.raises(NotImplementedError, match="mamba"):
+        TR.build(cfg).init(torch.Generator(), device="cpu")
+
+
+@pytest.mark.parametrize("change,named", [
+    (dict(ssm_type="xlstm", slstm_every=2), "xlstm"),
+    (dict(mrope=True), "mrope"),
+    (dict(sandwich_norm=True), "sandwich_norm"),
+    (dict(sliding_window=4, local_global=True), "local_global"),
+    (dict(embed_scale=True), "embed_scale"),
+    (dict(tie_embeddings=True), "tie_embeddings"),
+    (dict(final_softcap=30.0), "final_softcap"),
+    (dict(norm="layernorm"), "layernorm")])
+def test_unported_config_features_raise(change, named):
+    """A config feature the port does not run raises at init, at state
+    init and at apply, instead of running as if it were absent."""
+    from repro_torch.models import lm as TLM
+    cfg = tget(ARCH, reduced=True).replace(**change)
+    model = TR.build(cfg)
+    with pytest.raises(NotImplementedError, match=named):
+        model.init(torch.Generator(), device="cpu")
+    with pytest.raises(NotImplementedError, match=named):
+        model.init_state(1, 8, torch.float32, device="cpu")
+    params = TR.build(tget(ARCH, reduced=True)).init(torch.Generator(),
+                                                     device="cpu")
+    batch = {"tokens": torch.zeros((1, 2), dtype=torch.int64),
+             "positions": torch.arange(2).expand(1, 2)}
+    with pytest.raises(NotImplementedError, match=named):
+        model.prefill(params, batch)
+    with pytest.raises(NotImplementedError, match=named):
+        TLM.lm_apply(params, cfg, batch["tokens"], batch["positions"])
