@@ -7,7 +7,9 @@
 Phases (any failure exits non-zero; none catches its own):
 
   1. device: the card's name and power limit (nvidia-smi).
-  2. build: every `csrc/*.cu` of `repro_torch` with nvcc for sm_90a.
+  2. build: every `csrc/*.cu` of `repro_torch` with nvcc for sm_90a, one
+     nvcc each, in parallel; `cuobjdump -sass` must show HGMMA (tensor-core
+     wgmma) in `grouped_matmul_wgmma_kernel`.
   3. kernels: one full-width MinkUNet forward (plain torch flow "fod") on a
      50k-point city scene in the 65536 bucket records the inputs of all 41
      sparse convs.  Each kernel is held against its plain PyTorch version
@@ -64,28 +66,37 @@ Phases (any failure exits non-zero; none catches its own):
      Each kernel is held against its plain version on them at float32
      (max|kernel - plain| <= 1e-5 * max|plain|: sums in another order) and
      at bf16 (<= 8e-3 * max|plain|: one bf16 rounding of the output
-     scale), and timed at bf16 as device time a call (CUDA graph; the
+     scale).  grouped_matmul takes its float32-FMA kernel at float32 and
+     its tensor-core (wgmma) kernel at bf16, and each check must move that
+     variant's launch count; the FMA kernel is held at bf16 too, and the
+     tensor-core kernel run without its last 64-deep K stage must fail the
+     bf16 check (negative control).  Each kernel is timed at bf16 as
+     device time a call (CUDA graph; the
      calls take turns over enough copies of the operands that each reads
      them from device memory, not from L2) beside its plain version and
      one library call (SDPA with is_causal and
      enable_gqa; `torch.bmm` over the (E, capacity, Cin) view; SDPA over
      the cache's valid prefix), with its bound: the larger of the bytes
      read and written once at 3.35 TB/s and the operations the masks
-     leave at 989 TFLOP/s (bf16).  flash_attention is also checked with a
+     leave at 989 TFLOP/s (bf16); grouped_matmul's earlier FMA kernel is
+     timed the same way.  flash_attention is also checked with a
      window and a softcap and at head_dim 128 and 256.
   9. LM main path: `ServeEngine(build(cfg), params, ServeConfig(max_len=
      1024))` (bf16 weights and cache), `generate(prompts, 32)` once to
      warm up and three timed runs; prefill ms, decode ms a step and
      tokens/s on the host clock around synchronised calls.  Launch counts
      are zeroed just before and read just after: 24 flash_attention and 72
-     grouped_matmul launches a prefill, 24 flash_decode a decode step.
+     grouped_matmul launches a prefill, all 72 on the tensor-core kernel,
+     24 flash_decode a decode step.
   10. LM correctness: the plain path (all three kernels swapped for their
      plain versions here) is teacher-forced on the kernel path's tokens,
      and prefill and every decode step's logits compared: at bf16 (the
      main path) within LM_BF16_PATH_TOL * max|plain|, at float32 (an
      engine with compute and cache in float32) within 1e-4 * max|plain|;
      a greedy token may differ only where the plain top-2 gap is below the
-     same bound.  Three negative controls at float32 must be rejected:
+     same bound; the float32 run's prefill must launch the FMA
+     grouped_matmul 72 times.  Three negative controls at float32 must be
+     rejected:
      flash_attention skipping its last kv tile, grouped_matmul writing
      expert 0's tiles as zeros, flash_decode reading lengths - 1.
   11. a {"kernels": [...]} line (six kernels), the nvidia-smi line, and
@@ -149,6 +160,18 @@ def smi_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
+
+
+def sass_lines(lib, kernel: str, op: str) -> list[str]:
+    """The SASS instructions naming `op` in the function of `lib` whose
+    mangled name holds `kernel` (`cuobjdump -sass`)."""
+    from repro_torch.kernels import build
+    text = subprocess.run([build.tool("cuobjdump"), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    for part in text.split("Function : ")[1:]:
+        if kernel in part.split(maxsplit=1)[0]:
+            return [line.strip() for line in part.splitlines() if op in line]
+    raise AssertionError(f"no function {kernel} in the SASS of {lib}")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -818,7 +841,8 @@ def lm_phases(dev, mem_rate: float, bf16_rate: float, with_profile: bool):
 
     def calls(kind, args, dtype=None):
         """(kernel, plain, library) zero-argument calls on args, cast to
-        dtype when given."""
+        dtype when given; grouped_matmul adds its earlier float32-FMA
+        kernel."""
         cast = (lambda t: t.to(dtype)) if dtype is not None else (lambda t: t)
         if kind == "flash_attention":
             q, k, v, kw = args
@@ -835,7 +859,8 @@ def lm_phases(dev, mem_rate: float, bf16_rate: float, with_profile: bool):
             xe = x.view(e, x.shape[0] // e, x.shape[1])
             return (lambda: GMK.grouped_matmul_cuda(x, eid, w, rt),
                     lambda: grouped_matmul_ref(x, eid, w, rt),
-                    lambda: torch.bmm(xe, w))
+                    lambda: torch.bmm(xe, w),
+                    lambda: GMK.grouped_matmul_fma(x, eid, w, rt))
         q, k, v, lengths, kw = args
         q, k, v = cast(q), cast(k), cast(v)
         n = int(lengths.max())
@@ -847,6 +872,21 @@ def lm_phases(dev, mem_rate: float, bf16_rate: float, with_profile: bool):
                 lambda: flash_decode_ref(q, k, v, lengths, **kw),
                 lambda: F.scaled_dot_product_attention(
                     q4, kl, vl, scale=kw["scale"], enable_gqa=True))
+
+    def kernel_check(got, want, tol):
+        """(passes, max abs error, max|plain|): the per-kernel rule."""
+        scale = float(want.float().abs().max())
+        err = float((got.float() - want.float()).abs().max())
+        ok = (got.shape == want.shape and got.dtype == want.dtype
+              and bool(got.isfinite().all()) and err <= tol * scale)
+        return ok, err, scale
+
+    def gmm_skip_last_k_stage(x, eid, w, rt):
+        """The tensor-core kernel without its last K stage: run on every
+        input channel but those of the last WGMMA_K_STEP-deep stage."""
+        k = (x.shape[1] - 1) // GMK.WGMMA_K_STEP * GMK.WGMMA_K_STEP
+        return GMK.grouped_matmul_wgmma(x[:, :k].contiguous(), eid,
+                                        w[:, :k].contiguous(), rt)
 
     def work(kind, args):
         """(bytes, FLOPs) the call needs: each input read once, each output
@@ -884,39 +924,67 @@ def lm_phases(dev, mem_rate: float, bf16_rate: float, with_profile: bool):
           f"{bf16_rate / 1e12:.0f} TFLOP/s bf16")
     print(f"{'kernel':16s} {'site':22s} {'shape':26s} {'max':>8s} "
           f"{'rel f32':>9s} {'rel bf16':>9s} {'kernel':>8s} {'warm L2':>8s} "
-          f"{'plain':>8s} {'library':>8s} {'bound':>8s} {'by':>5s}")
-    stats = {k: {"n": 0, "ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0,
-                 "bytes": 0.0, "ops": 0.0, "err": 0.0}
+          f"{'plain':>8s} {'library':>8s} {'bound':>8s} {'by':>5s} "
+          f"{'earlier':>8s}")
+    stats = {k: {"n": 0, "ms": 0.0, "plain": 0.0, "lib": 0.0, "earlier": 0.0,
+                 "bound": 0.0, "bytes": 0.0, "ops": 0.0, "err": 0.0}
              for k in ("flash_attention", "grouped_matmul", "flash_decode")}
+    gmm_notes = []
     for kind, site, args in sites:
         rels = {}
         for label, dtype in (("f32", torch.float32), ("bf16", None)):
-            kern, plain, _ = calls(kind, args, dtype)
-            got, want = kern(), plain()
+            fns = calls(kind, args, dtype)
+            before = dict(GMK.LAUNCHES)
+            got, want = fns[0](), fns[1]()
             torch.cuda.synchronize()
-            scale = float(want.float().abs().max())
-            err = float((got.float() - want.float()).abs().max())
-            rels[label] = err / scale
             tol = LM_KERNEL_F32_TOL if label == "f32" else LM_BF16_TOL
-            if not (got.shape == want.shape and got.dtype == want.dtype
-                    and bool(got.isfinite().all()) and err <= tol * scale):
+            ok, err, scale = kernel_check(got, want, tol)
+            rels[label] = err / scale
+            if not ok:
                 raise AssertionError(
                     f"{kind} disagrees with its plain version at {site} "
                     f"({label}): max abs err {err} against max|plain| "
                     f"{scale}")
             if label == "bf16":
                 stats[kind]["err"] = max(stats[kind]["err"], err)
+            if kind != "grouped_matmul":
+                continue
+            # the check reached the kernel the selection rule names: the
+            # float32-FMA kernel at f32 (no TF32), the tensor cores at bf16
+            ran = "fma" if label == "f32" else "wgmma"
+            if GMK.LAUNCHES[f"grouped_matmul_{ran}"] != \
+                    before[f"grouped_matmul_{ran}"] + 1:
+                raise AssertionError(f"grouped_matmul at {label} did not "
+                                     f"launch its {ran} kernel")
+            if label == "f32":
+                continue
+            ok_e, err_e, _ = kernel_check(fns[3](), want, tol)
+            ok_c, err_c, _ = kernel_check(gmm_skip_last_k_stage(*args), want,
+                                          tol)
+            torch.cuda.synchronize()
+            gmm_notes.append(
+                f"grouped_matmul {site}: earlier FMA kernel at bf16 "
+                f"{err_e / scale:.2e}; negative control (tensor-core kernel "
+                f"skipping its last {GMK.WGMMA_K_STEP}-deep K stage) "
+                f"{err_c / scale:.2e} -> {'ACCEPTED' if ok_c else 'rejected'}")
+            if not ok_e:
+                raise AssertionError(f"the FMA grouped_matmul disagrees with "
+                                     f"its plain version at {site} (bf16)")
+            if ok_c:
+                raise AssertionError("the bf16 kernel check accepts "
+                                     "grouped_matmul without its last K "
+                                     "stage")
         nbytes, flops = work(kind, args)
         copies = cold_copies(args, nbytes, l2_bytes)
         fns = [calls(kind, a) for a in copies]
         t = [graph_ms(rotating([f[i] for f in fns]), MLP_REPS)
-             for i in range(3)]
+             for i in range(len(fns[0]))]
         warm = graph_ms(fns[0][0], MLP_REPS)
         del fns, copies
         b_bytes, b_ops = nbytes / mem_rate * 1e3, flops / bf16_rate * 1e3
         st = stats[kind]
         st["n"] += 1
-        for key, val in zip(("ms", "plain", "lib"), t):
+        for key, val in zip(("ms", "plain", "lib", "earlier"), t):
             st[key] += val
         st["bound"] += max(b_bytes, b_ops)
         st["bytes"] += b_bytes
@@ -928,7 +996,10 @@ def lm_phases(dev, mem_rate: float, bf16_rate: float, with_profile: bool):
               f"{rels['f32']:9.2e} {rels['bf16']:9.2e} {t[0]:8.4f} "
               f"{warm:8.4f} {t[1]:8.4f} {t[2]:8.4f} "
               f"{max(b_bytes, b_ops):8.4f} "
-              f"{'ops' if b_ops >= b_bytes else 'bytes':>5s}")
+              f"{'ops' if b_ops >= b_bytes else 'bytes':>5s} "
+              + (f"{t[3]:8.4f}" if len(t) > 3 else f"{'-':>8s}"))
+    for line in gmm_notes:
+        print(line)
 
     # flash attention at the shapes other configs need: window, softcap,
     # head_dim 128 and 256
@@ -978,6 +1049,8 @@ def lm_phases(dev, mem_rate: float, bf16_rate: float, with_profile: bool):
     n_dec = len(step_ms["decode"])
     want_launch = {"flash_attention": 4 * cfg.n_layers,
                    "grouped_matmul": 4 * 3 * cfg.n_layers,
+                   "grouped_matmul_wgmma": 4 * 3 * cfg.n_layers,
+                   "grouped_matmul_fma": 0,
                    "flash_decode": n_dec * cfg.n_layers}
     print(f"LM main-path launches over 4 generate calls (4 prefills, {n_dec} "
           f"decode steps): {launches}")
@@ -1005,8 +1078,8 @@ def lm_phases(dev, mem_rate: float, bf16_rate: float, with_profile: bool):
 
     if with_profile:
         from torch.profiler import ProfilerActivity, profile
-        names = ("flash_attention_kernel", "grouped_matmul_kernel",
-                 "flash_decode_kernel")
+        names = ("flash_attention_kernel", "grouped_matmul_wgmma_kernel",
+                 "grouped_matmul_kernel", "flash_decode_kernel")
         dev_b = {"tokens": torch.as_tensor(prompts, dtype=torch.int64,
                                            device=dev),
                  "positions": torch.arange(s, device=dev).expand(b, s)}
@@ -1112,9 +1185,16 @@ def lm_phases(dev, mem_rate: float, bf16_rate: float, with_profile: bool):
     engine32 = ServeEngine(model, params, ServeConfig(
         max_len=LM_MAX_LEN, compute_dtype=torch.float32,
         cache_dtype=torch.float32), device=dev)
+    GMK.reset_launch_counts()
     gen32 = engine32.generate(prompts, max_new_tokens=LM_NEW)
+    gmm32 = dict(GMK.LAUNCHES)
     print(f"LM f32 generate: tokens equal to the bf16 run's "
-          f"{float((gen32 == gen).mean()):.3f}")
+          f"{float((gen32 == gen).mean()):.3f}; grouped_matmul launches "
+          f"{gmm32}")
+    if gmm32 != {"grouped_matmul": 3 * cfg.n_layers, "grouped_matmul_wgmma": 0,
+                 "grouped_matmul_fma": 3 * cfg.n_layers}:
+        raise AssertionError(f"f32 prefill grouped_matmul launches {gmm32}, "
+                             f"expected {3 * cfg.n_layers} on the FMA kernel")
     want, plain_routes = check(engine32, gen32, "f32", LM_F32_TOL)
 
     real_gmm = GMK.grouped_matmul_cuda
@@ -1168,6 +1248,8 @@ def lm_phases(dev, mem_rate: float, bf16_rate: float, with_profile: bool):
     print(f"LM part: {time.perf_counter() - t_lm:.1f} s wall")
 
     src = "src/repro_torch/kernels/{0}/csrc/{0}.cu"
+    sources = {"grouped_matmul": "src/repro_torch/kernels/grouped_matmul/"
+                                 "csrc/grouped_matmul_wgmma.cu"}
     replaces = {
         "grouped_matmul":
             "src/repro/kernels/grouped_matmul/grouped_matmul.py:48",
@@ -1186,7 +1268,8 @@ def lm_phases(dev, mem_rate: float, bf16_rate: float, with_profile: bool):
         st = stats[name]
         n = st["n"]
         entries.append({
-            "name": name, "route": "cuda", "source": src.format(name),
+            "name": name, "route": "cuda",
+            "source": sources.get(name, src.format(name)),
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": st["err"], "ms": st["ms"] / n,
             "plain_ms": st["plain"] / n, "bound_ms": st["bound"] / n,
@@ -1200,6 +1283,14 @@ def lm_phases(dev, mem_rate: float, bf16_rate: float, with_profile: bool):
                                         "k[:, :L] (enable_gqa)"}[name],
             "timing": "device ms a call: 20 calls in one CUDA graph (bf16)",
             "per": per[name]})
+    entries[0].update({
+        "variant": "wgmma", "launches_by_variant": {
+            k: launches[f"grouped_matmul_{k}"] for k in ("wgmma", "fma")},
+        "earlier_ms": stats["grouped_matmul"]["earlier"]
+        / stats["grouped_matmul"]["n"],
+        "earlier_source": src.format("grouped_matmul"),
+        "earlier": "float32-FMA kernel (still taken for float32 and odd "
+                   "widths)"})
     return entries
 
 
@@ -1235,6 +1326,13 @@ def main(argv) -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print("  ptxas:", line.strip())
+    # the bf16 grouped matmul runs on the tensor cores: HGMMA in its SASS
+    hgmma = sass_lines(libs["grouped_matmul_wgmma"],
+                       "grouped_matmul_wgmma_kernel", "HGMMA")
+    if not hgmma:
+        raise AssertionError("no HGMMA in grouped_matmul_wgmma_kernel's SASS")
+    print(f"SASS: grouped_matmul_wgmma_kernel holds {len(hgmma)} HGMMA "
+          f"instructions, e.g. {hgmma[0].split(';')[0]}")
 
     scenes = {key: city_scene(*key) for key in (SCENE_A, SCENE_B)}
     module = MU.minkunet_init(torch.Generator().manual_seed(0))

@@ -37,17 +37,19 @@ def sources() -> dict[str, Path]:
     return {p.stem: p for p in sorted(PKG_DIR.glob("**/csrc/*.cu"))}
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def tool(name: str = "nvcc") -> str:
+    """Path of a CUDA toolkit program (nvcc, cuobjdump): PATH, then
+    $CUDA_HOME/bin, then /usr/local/cuda/bin; raises if none has it."""
+    found = shutil.which(name)
     if found:
         return found
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    cand = Path(home) / "bin" / "nvcc"
+    cand = Path(home) / "bin" / name
     if cand.exists():
         return str(cand)
     raise RuntimeError(
-        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
-        "CUDA kernels cannot be built")
+        f"{name} not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
+        "CUDA kernels cannot be built or inspected")
 
 
 def build_dir() -> Path:
@@ -68,7 +70,7 @@ def build_all() -> dict[str, Path]:
             if not libs[name].exists()}
     if not todo:
         return libs
-    nvcc = _nvcc()
+    nvcc = tool("nvcc")
     procs = {}
     for name, src in todo.items():
         tmp = out_dir / f"lib{name}.so.tmp{os.getpid()}"

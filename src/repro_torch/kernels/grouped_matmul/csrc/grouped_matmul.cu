@@ -13,7 +13,9 @@
 // 989 TFLOP/s (bf16 tensor cores), beside its bytes (x read once, the 32 expert
 // matrices once, out written once: 197 MB in bf16), 0.059 ms at 3.35 TB/s.  The two
 // are about even.  This kernel runs float32 FMAs (67 TFLOP/s at most), so it sits far
-// above that bound: tensor cores (wgmma) are the redesign's work.
+// above that bound.  bf16 calls at widths that are multiples of 8 go to the tensor-core
+// kernel (grouped_matmul_wgmma.cu); this one keeps float32 exact (no TF32) and takes
+// odd widths.
 //
 // What the design does about it.
 //   * One CTA owns 64 rows (a row tile of 128 is split over two CTAs) and 128 output

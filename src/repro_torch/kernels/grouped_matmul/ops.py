@@ -7,8 +7,8 @@ Fetch-on-Demand.  Integer outputs (`dest_row`, `tile_eid`, `src_token`)
 equal the reference's.
 
   * `make_dispatch`  — expert_idx (T, topk) -> `Dispatch`.
-  * `grouped_matmul` — through the CUDA kernel (its plain version on CPU
-    tensors).
+  * `grouped_matmul` — through the CUDA kernel that `grouped_matmul_cuda`
+    picks by dtype and shape (its plain version on CPU tensors).
   * `sorted_moe_ffn` — the whole sorted-dispatch expert FFN: three
     `grouped_matmul` calls (w_in, w_gate, w_out).
 """

@@ -171,7 +171,11 @@ def test_flash_decode_kernel_matches_plain_version(hd, g, s, softcap, q_dtype,
 @pytest.mark.parametrize("row_tile,eids,cin,cout", [
     (128, [3, 3, 0, 5, 1, 1, 1, 2], 1024, 512),   # unequal segments
     (64, [2, 0, 2, 7, 7], 200, 300),             # odd widths, revisits
-    (128, [0], 512, 1024)])
+    (128, [0], 512, 1024),
+    # K and N tails (200 = 3 x 64 + 8, 136 = 128 + 8); experts 6 and 0 come
+    # before others, so a K tail read past their Cin rows would show
+    (128, [6, 7, 0, 7, 2, 6], 200, 136),
+    (256, [1, 9, -3, 7], 256, 128)])             # ids out of range: clamped
 def test_grouped_matmul_kernel_matches_plain_version(row_tile, eids, cin, cout,
                                                      dtype):
     if not torch.cuda.is_available():
@@ -182,11 +186,23 @@ def test_grouped_matmul_kernel_matches_plain_version(row_tile, eids, cin, cout,
     x = _cuda(rng, (row_tile * len(eids), cin), dtype)
     w = _cuda(rng, (8, cin, cout), dtype, scale=cin ** -0.5)
     eid = torch.tensor(eids, dtype=torch.int32, device="cuda")
-    before = F.LAUNCHES["grouped_matmul"]
+    # bf16 at widths that are multiples of 8 and 128-row tiles takes the
+    # tensor cores; float32 and odd widths the float32-FMA kernel
+    kind = "wgmma" if dtype == "bfloat16" and cout != 300 else "fma"
+    assert F.variant(x.dtype, cin, cout, row_tile) == kind
+    before = dict(F.LAUNCHES)
     got = F.grouped_matmul_cuda(x, eid, w, row_tile)
     torch.cuda.synchronize()
     assert got.dtype == x.dtype and got.shape == (x.shape[0], cout)
-    torch.testing.assert_close(got.float(),
-                               grouped_matmul_ref(x, eid, w, row_tile).float(),
-                               **_tol(dtype))
-    assert F.LAUNCHES["grouped_matmul"] == before + 1
+    want = grouped_matmul_ref(x, eid.clamp(0, w.shape[0] - 1), w, row_tile)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+    moved = {k: F.LAUNCHES[k] - before[k] for k in before}
+    assert moved == {"grouped_matmul": 1,
+                     "grouped_matmul_wgmma": int(kind == "wgmma"),
+                     "grouped_matmul_fma": int(kind == "fma")}
+    if kind == "wgmma":   # the FMA kernel still takes these shapes
+        fma = F.grouped_matmul_fma(x, eid, w, row_tile)
+        torch.testing.assert_close(fma.float(), want.float(), **_tol(dtype))
+    else:                 # the tensor-core kernel refuses them
+        with pytest.raises(ValueError):
+            F.grouped_matmul_wgmma(x, eid, w, row_tile)

@@ -57,10 +57,10 @@ def _close(got, want, dtype):
 @pytest.fixture(autouse=True)
 def no_launches():
     before = (FA.LAUNCHES["flash_attention"], FD.LAUNCHES["flash_decode"],
-              GM.LAUNCHES["grouped_matmul"])
+              dict(GM.LAUNCHES))
     yield
     assert (FA.LAUNCHES["flash_attention"], FD.LAUNCHES["flash_decode"],
-            GM.LAUNCHES["grouped_matmul"]) == before
+            GM.LAUNCHES) == before
 
 
 # --------------------------------------------------------------------------
@@ -192,6 +192,37 @@ def test_grouped_matmul_matches_pallas(row_tile, eids, cin, cout, dtype):
     _close(got, grouped_matmul_pallas(xj, jnp.asarray(eid), wj,
                                       row_tile=row_tile, interpret=True),
            dtype)
+
+
+_LM = tget(ARCH)
+
+
+@pytest.mark.parametrize("dtype,cin,cout,row_tile,kind", [
+    ("bfloat16", _LM.d_model, _LM.d_ff, 128, "wgmma"),   # w_in, w_gate
+    ("bfloat16", _LM.d_ff, _LM.d_model, 128, "wgmma"),   # w_out
+    ("bfloat16", 200, 136, 256, "wgmma"),                # tails, 2 CTAs a tile
+    ("float32", _LM.d_model, _LM.d_ff, 128, "fma"),      # no TF32
+    ("float32", _LM.d_ff, _LM.d_model, 128, "fma"),
+    ("bfloat16", 200, 300, 128, "fma"),                  # Cout not of 8
+    ("bfloat16", 204, 512, 128, "fma"),                  # Cin not of 8
+    ("bfloat16", 1024, 512, 64, "fma")])                 # half a wgmma CTA
+def test_grouped_matmul_variant_is_chosen_by_dtype_and_shape(
+        dtype, cin, cout, row_tile, kind):
+    assert GM.variant(getattr(torch, dtype), cin, cout, row_tile) == kind
+
+
+@pytest.mark.parametrize("entry", ["grouped_matmul_cuda",
+                                   "grouped_matmul_wgmma",
+                                   "grouped_matmul_fma"])
+def test_grouped_matmul_cpu_tensors_take_the_plain_version(entry):
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.normal(size=(256, 16)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(3, 16, 24)).astype(np.float32))
+    x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    eid = torch.tensor([2, 0], dtype=torch.int32)
+    got = getattr(GM, entry)(x, eid, w, 128)
+    torch.testing.assert_close(got, grouped_matmul_ref(x, eid, w, 128),
+                               rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("t,topk,e,capacity,skew", [
