@@ -9,7 +9,10 @@ Phases (any failure exits non-zero; none catches its own):
   1. device: the card's name and power limit (nvidia-smi).
   2. build: every `csrc/*.cu` of `repro_torch` with nvcc for sm_90a, one
      nvcc each, in parallel; `cuobjdump -sass` must show HGMMA (tensor-core
-     wgmma) in `grouped_matmul_wgmma_kernel`.
+     wgmma) in `grouped_matmul_wgmma_kernel`, and a 128-bit global load
+     (LDG.E.128 or LDGSTS.128) in the `flash_decode_kernel` instance that
+     the decode step's shapes take, whose registers and spills (ptxas -v)
+     are printed.
   3. kernels: one full-width MinkUNet forward (plain torch flow "fod") on a
      50k-point city scene in the 65536 bucket records the inputs of all 41
      sparse convs.  Each kernel is held against its plain PyTorch version
@@ -80,7 +83,11 @@ Phases (any failure exits non-zero; none catches its own):
      read and written once at 3.35 TB/s and the operations the masks
      leave at 989 TFLOP/s (bf16); grouped_matmul's earlier FMA kernel is
      timed the same way.  flash_attention is also checked with a
-     window and a softcap and at head_dim 128 and 256.
+     window and a softcap and at head_dim 128 and 256; flash_decode, at
+     the decode step's widths with operands from a seed, at unequal
+     lengths (0, 1, 63, 64, 65, 511, 1024 and one past S) and at every
+     split count 1..8, each printed with its launch plan (n_split, CTAs,
+     cluster or not).
   9. LM main path: `ServeEngine(build(cfg), params, ServeConfig(max_len=
      1024))` (bf16 weights and cache), `generate(prompts, 32)` once to
      warm up and three timed runs; prefill ms, decode ms a step and
@@ -172,6 +179,31 @@ def sass_lines(lib, kernel: str, op: str) -> list[str]:
         if kernel in part.split(maxsplit=1)[0]:
             return [line.strip() for line in part.splitlines() if op in line]
     raise AssertionError(f"no function {kernel} in the SASS of {lib}")
+
+
+def ptxas_kernels(log: str) -> dict:
+    """{mangled kernel name: (registers, spill store bytes, spill load
+    bytes)} from nvcc's `-Xptxas -v` output."""
+    out, name, spill = {}, None, (0, 0)
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name, spill = line.split("'")[1], (0, 0)
+        elif "spill stores" in line and name:
+            words = line.replace(",", "").split()
+            spill = (int(words[words.index("spill") - 2]),
+                     int(words[len(words) - 4]))
+        elif "Used" in line and "registers" in line and name:
+            words = line.replace(",", "").split()
+            out[name] = (int(words[words.index("registers") - 1]), *spill)
+    return out
+
+
+def fd_kernel_name(plan, kv_bf16: bool) -> str:
+    """The mangled-name fragment of the flash_decode_kernel instance that a
+    launch plan takes."""
+    kv = "13__nv_bfloat16" if kv_bf16 else "f"
+    return (f"flash_decode_kernelI{kv}Li{plan.vec}ELi{plan.nv}ELi"
+            f"{plan.gt}E")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -1000,6 +1032,31 @@ def lm_phases(dev, mem_rate: float, bf16_rate: float, with_profile: bool):
               + (f"{t[3]:8.4f}" if len(t) > 3 else f"{'-':>8s}"))
     for line in gmm_notes:
         print(line)
+    fd_args = next(a for kind, _, a in sites if kind == "flash_decode")
+    fd_plan = FDK.plan_launch(*fd_args[:3], torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    print(f"flash_decode launch plan at the decode step's shapes: n_split "
+          f"{fd_plan.n_split}, {fd_plan.ctas} CTAs ({fd_plan.grid[0]} x "
+          f"{fd_plan.n_split}), cluster {fd_plan.cluster}, {fd_plan.vec}-byte "
+          f"loads, {fd_plan.gs} lanes a row, {fd_plan.gt} heads a CTA, "
+          f"{fd_plan.smem} bytes of shared memory")
+    # its time at each power-of-two split and its fixed cost (every length
+    # 0: launch, the lengths read, barriers and merges), at layer 0's
+    # operands, cold as above
+    q, k, v, lengths, kw = fd_args
+    copies = cold_copies((q, k, v, lengths), work("flash_decode", fd_args)[0],
+                         l2_bytes)
+    split_ms = {n: graph_ms(rotating([
+        lambda a=a, n=n: FDK.flash_decode_cuda(*a, **kw, n_split=n)
+        for a in copies]), MLP_REPS) for n in (1, 2, 4, 8)}
+    zero = torch.zeros_like(lengths)
+    fixed_ms = graph_ms(rotating([
+        lambda a=a: FDK.flash_decode_cuda(*a[:3], zero, **kw)
+        for a in copies]), MLP_REPS)
+    del copies, q, k, v, lengths
+    print(f"flash_decode: device ms a call (cold) at n_split "
+          + ", ".join(f"{n}: {t:.4f}" for n, t in split_ms.items())
+          + f"; with every length 0: {fixed_ms:.4f}")
 
     # flash attention at the shapes other configs need: window, softcap,
     # head_dim 128 and 256
@@ -1021,6 +1078,43 @@ def lm_phases(dev, mem_rate: float, bf16_rate: float, with_profile: bool):
             if not err <= tol * scale:
                 raise AssertionError(f"flash_attention disagrees at hd {hd} "
                                      f"{kw} {dtype}")
+
+    # flash decode at the decode step's widths, operands from a seed:
+    # unequal lengths (around the 64-slot split unit, full, one past S),
+    # then every split count
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    hd = cfg.resolved_head_dim
+    rng = np.random.default_rng(2)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+               .to(dev) for shape in ((LM_BATCH, cfg.n_heads, hd),
+                                      (LM_BATCH, LM_MAX_LEN, cfg.n_kv_heads,
+                                       hd), (LM_BATCH, LM_MAX_LEN,
+                                             cfg.n_kv_heads, hd)))
+    unequal = [0, 1, 63, 64, 65, 511, LM_MAX_LEN, LM_MAX_LEN + 37]
+    near = [LM_PROMPT + 1 + i for i in range(LM_BATCH)]
+    cases = ([("unequal lengths", unequal, None)]
+             + [(f"n_split {n}", near, n)
+                for n in range(1, FDK.MAX_SPLIT + 1)])
+    for label, lens, n_split in cases:
+        lengths = torch.tensor([lens[i % len(lens)] for i in range(LM_BATCH)],
+                               dtype=torch.int32, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            qc, kc, vc = q.to(dtype), k.to(dtype), v.to(dtype)
+            plan = FDK.plan_launch(qc, kc, vc, n_sm, n_split)
+            got = FDK.flash_decode_cuda(qc, kc, vc, lengths, scale=hd ** -0.5,
+                                        n_split=n_split)
+            want = flash_decode_ref(qc, kc, vc, lengths, scale=hd ** -0.5)
+            torch.cuda.synchronize()
+            tol = LM_KERNEL_F32_TOL if dtype == torch.float32 else LM_BF16_TOL
+            ok, err, scale = kernel_check(got, want, tol)
+            print(f"flash_decode {label}, lengths {lengths.tolist()}, "
+                  f"{dtype}: n_split {plan.n_split}, {plan.ctas} CTAs, "
+                  f"cluster {plan.cluster}, {plan.vec}-byte loads; max abs "
+                  f"err {err:.2e}, max|plain| {scale:.3g}")
+            if not ok:
+                raise AssertionError(f"flash_decode disagrees with its plain "
+                                     f"version ({label}, {dtype})")
+    del q, k, v
 
     # 9. main path: generate through ServeEngine, timed
     step_ms = {"prefill": [], "decode": []}
@@ -1291,6 +1385,13 @@ def lm_phases(dev, mem_rate: float, bf16_rate: float, with_profile: bool):
         "earlier_source": src.format("grouped_matmul"),
         "earlier": "float32-FMA kernel (still taken for float32 and odd "
                    "widths)"})
+    entries[2].update({
+        "n_split": fd_plan.n_split, "ctas": fd_plan.ctas,
+        "cluster": fd_plan.cluster, "load_bytes": fd_plan.vec,
+        "split_ms": {str(n): t for n, t in split_ms.items()},
+        "fixed_ms": fixed_ms,
+        "earlier": "one CTA per (batch, kv head), scalar loads (first port; "
+                   "no longer in the source, so not timed here)"})
     return entries
 
 
@@ -1322,10 +1423,54 @@ def main(argv) -> int:
     libs = build.build_all()
     print(f"build: {len(libs)} librar(y/ies) from csrc/ in "
           f"{time.perf_counter() - t0:.2f} s")
-    for log in build.build_log.values():
+    for lib, log in build.build_log.items():
+        if lib == "flash_decode":
+            continue
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print("  ptxas:", line.strip())
+    # flash_decode: one instance per (cache type, load width, loads a row,
+    # heads a CTA); the decode step's shapes take one of them
+    from repro_torch.configs import get as get_config
+    from repro_torch.kernels.flash_decode import flash_decode as FDK
+    lm = get_config(LM_ARCH)
+    hd = lm.resolved_head_dim
+    fd_plan = FDK.plan_launch(
+        torch.empty((LM_BATCH, lm.n_heads, hd), dtype=torch.bfloat16,
+                    device="cuda"),
+        *[torch.empty((LM_BATCH, LM_MAX_LEN, lm.n_kv_heads, hd),
+                      dtype=torch.bfloat16, device="cuda")] * 2,
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    fd_name = fd_kernel_name(fd_plan, True)
+    fd_regs = ptxas_kernels(build.build_log.get("flash_decode", ""))
+    main = [v for k, v in fd_regs.items() if fd_name in k]
+    if len(main) != 1:
+        raise AssertionError(f"ptxas reports {len(main)} kernels named "
+                             f"{fd_name}")
+    spilled = sorted(k.split("flash_decode_kernel")[1] for k, v in
+                     fd_regs.items() if v[1] or v[2])
+    print(f"  ptxas: flash_decode_kernel: {len(fd_regs)} instances, the "
+          f"decode step's ({fd_name.split('kernel')[1]}: {fd_plan}) "
+          f"{main[0][0]} registers, spill stores/loads {main[0][1]}/"
+          f"{main[0][2]} bytes; at most {max(v[0] for v in fd_regs.values())}"
+          f" registers; instances with spills: {spilled}")
+    # CTAs an SM by those registers (allocated 8 a thread at a time) and by
+    # shared memory (228 KB an SM, 1 KB of it reserved a CTA), and CTA
+    # slots on the card against the launch's CTAs
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    by_regs = 65536 // (-(-main[0][0] // 8) * 8 * FDK.THREADS)
+    by_smem = 233472 // (fd_plan.smem + 1024)
+    per_sm = min(by_regs, by_smem, 2048 // FDK.THREADS)
+    print(f"  flash_decode occupancy (from ptxas): {per_sm} CTAs an SM "
+          f"({by_regs} by registers, {by_smem} by shared memory), "
+          f"{per_sm * n_sm} CTA slots on {n_sm} SMs for the decode step's "
+          f"{fd_plan.ctas} CTAs")
+    wide = [ln for ln in sass_lines(libs["flash_decode"], fd_name, "LDG")
+            if ".128" in ln]                  # LDG.E.128..., LDGSTS...128
+    if not wide:
+        raise AssertionError(f"no 128-bit global load in {fd_name}'s SASS")
+    print(f"SASS: {fd_name} holds {len(wide)} 128-bit global loads, e.g. "
+          f"{wide[0].split(';')[0]}")
     # the bf16 grouped matmul runs on the tensor cores: HGMMA in its SASS
     hgmma = sass_lines(libs["grouped_matmul_wgmma"],
                        "grouped_matmul_wgmma_kernel", "HGMMA")

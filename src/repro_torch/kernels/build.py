@@ -30,7 +30,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
-build_log: dict[str, str] = {}   # source name -> nvcc's output (ptxas -v)
+build_log: dict[str, str] = {}   # source name -> nvcc's output (ptxas -v),
+                                 # kept beside each library as lib<name>.log
 
 
 def sources() -> dict[str, Path]:
@@ -68,6 +69,9 @@ def build_all() -> dict[str, Path]:
     libs = {name: out_dir / f"lib{name}.so" for name in sources()}
     todo = {name: src for name, src in sources().items()
             if not libs[name].exists()}
+    for name in libs.keys() - todo.keys():
+        log = out_dir / f"lib{name}.log"
+        build_log.setdefault(name, log.read_text() if log.exists() else "")
     if not todo:
         return libs
     nvcc = tool("nvcc")
@@ -81,6 +85,7 @@ def build_all() -> dict[str, Path]:
     for name, (tmp, proc) in procs.items():
         log, _ = proc.communicate()
         build_log[name] = log
+        (out_dir / f"lib{name}.log").write_text(log)
         if proc.returncode != 0:
             failed.append(f"{name}:\n{log}")
         else:

@@ -1,7 +1,8 @@
 """The LM decode step's attention entry point: `flash_decode`.
 
-Unlike the reference's wrapper this pads nothing: the CUDA kernel masks the
-ragged last tile and reads no slot past a sequence's length.
+Unlike the reference's wrapper this pads nothing: the CUDA kernel splits
+each sequence's valid prefix over the CTAs of one cluster and reads no slot
+at or past its length.
 """
 
 from __future__ import annotations

@@ -22,9 +22,9 @@
 //     columns; Cout is tiled over blockIdx.y.  The block loads its own expert id from
 //     tile_eid (no scalar prefetch on this card) and streams W[eid] through shared
 //     memory 16 input channels at a time; x's rows are read once per column tile.
-//   * Nothing assumes equal expert segments: any tile_eid (ids out of range are
-//     clamped, as the reference's gather clamps) and any row_tile that is a multiple
-//     of 64.  Odd Cin and Cout are masked in the loads and stores.
+//   * Nothing assumes equal expert segments: any tile_eid (an id out of range wraps
+//     once if negative, then clamps, as the reference's gather does) and any
+//     row_tile that is a multiple of 64.  Odd Cin and Cout are masked in the loads and stores.
 //   * Warp w owns rows 8w..8w+7 of the tile and lane l the columns l + 32j (j < 4): a
 //     thread keeps an 8 x 4 accumulator in registers; x is staged transposed so a
 //     warp reads its 8 rows as two broadcast float4 loads, and W reads are conflict
@@ -64,6 +64,12 @@ __device__ __forceinline__ void st(void* p, size_t i, float v) {
   }
 }
 
+// The expert of a row tile by the reference's rule (jnp indexing): a negative
+// id wraps once (+E), then the id clamps to [0, E - 1].
+__device__ __forceinline__ int expert_id(int id, int n_experts) {
+  return min(max(id < 0 ? id + n_experts : id, 0), n_experts - 1);
+}
+
 template <bool BF16>
 __global__ void __launch_bounds__(kThreads)
     grouped_matmul_kernel(const void* __restrict__ x, const int* __restrict__ tile_eid,
@@ -72,7 +78,7 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ __align__(16) float s_a[kBk][kBmP];   // x tile, transposed
   __shared__ __align__(16) float s_b[kBk][kBn];    // W[eid] tile
   const int m0 = blockIdx.x * kBm, n0 = blockIdx.y * kBn;
-  const int eid = min(max(tile_eid[m0 / row_tile], 0), n_experts - 1);
+  const int eid = expert_id(tile_eid[m0 / row_tile], n_experts);
   const size_t w_base = size_t(eid) * cin * cout;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 

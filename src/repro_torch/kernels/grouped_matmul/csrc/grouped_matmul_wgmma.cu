@@ -38,8 +38,8 @@
 //     step past Cin is out of bounds inside expert eid and TMA fills zeros (a 2-D map
 //     over the flattened (E Cin, Cout) view would read expert eid + 1); x's 2-D map
 //     (Cin, R) does the same for its K tail; columns past Cout load as zeros and are
-//     masked at the store.  Ids out of range are clamped, as the reference's gather
-//     clamps.
+//     masked at the store.  An id out of range wraps once if negative, then
+//     clamps, as the reference's gather does (`expert_id`).
 //   * Two CTAs fit on an SM (3 stages x 32 KB each), so one CTA's prologue and
 //     epilogue overlap the other's main loop.
 //   * The tensor maps depend on the pointers, so the host encodes them per call and
@@ -174,6 +174,12 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
       : "l"(da), "l"(db), "r"(1));
 }
 
+// The expert of a row tile by the reference's rule (jnp indexing): a negative
+// id wraps once (+E), then the id clamps to [0, E - 1].
+__device__ __forceinline__ int expert_id(int id, int n_experts) {
+  return min(max(id < 0 ? id + n_experts : id, 0), n_experts - 1);
+}
+
 __global__ void __launch_bounds__(kThreads, 2)
     grouped_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
                                 const __grid_constant__ CUtensorMap w_map,
@@ -199,7 +205,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   if (warp == kConsumerWarps) {   // producer
     if (lane == 0) {
-      const int eid = min(max(tile_eid[m0 / row_tile], 0), n_experts - 1);
+      const int eid = expert_id(tile_eid[m0 / row_tile], n_experts);
       for (int k = 0; k < k_steps; ++k) {
         const int s = k % kStages;
         const uint32_t full = bars + 8 * s, a = base + s * kStageBytes;

@@ -15,7 +15,9 @@ The choice depends on dtype and shape only, never on a failure: a refused
 launch raises.  A CPU tensor goes to the plain version
 (`ref.grouped_matmul_ref`) and no count moves.  A CUDA tensor launches a
 kernel on the current stream, or raises.  The kernels take `tile_eid` as
-given (no equal segments assumed; ids out of range are clamped).
+given (no equal segments assumed); an id out of range follows the
+reference's rule in every path (`ref.expert_ids`: a negative id wraps once,
+then clamps to [0, E - 1]).
 `LAUNCHES` counts kernel launches: "grouped_matmul" every one, and one
 count per variant.
 """

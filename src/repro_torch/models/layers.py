@@ -118,8 +118,8 @@ def attention_apply(p, cfg: ArchConfig, x: torch.Tensor,
     """x (B, S, D).  mode: train | prefill | decode.
 
     decode: S == 1, cache_pos (B,) current position; the new K/V are
-    written into `cache` in place (slot `cache_pos`, or `cache_pos % S` in
-    a ring buffer), and the cache is returned.
+    written into `cache` in place (slot `min(cache_pos, S - 1)`, or
+    `cache_pos % S` in a ring buffer), and the cache is returned.
     Returns (out, new_cache_or_None).
     """
     b, s, d = x.shape
@@ -138,8 +138,11 @@ def attention_apply(p, cfg: ArchConfig, x: torch.Tensor,
         s_cache = cache.k.shape[1]
         ring = layer_window is not None and s_cache <= layer_window
         # SWA layers keep a ring buffer of exactly `window` slots; rope is
-        # applied at absolute positions before caching
-        slot = cache_pos % s_cache if ring else cache_pos
+        # applied at absolute positions before caching.  Past the end of a
+        # plain cache the write lands in its last slot: the reference's
+        # dynamic_update_slice clamps it there
+        slot = (cache_pos % s_cache if ring
+                else cache_pos.clamp(0, s_cache - 1))
         rows = torch.arange(b, device=x.device)
         cache.k[rows, slot] = k[:, 0].to(cache.k.dtype)
         cache.v[rows, slot] = v[:, 0].to(cache.v.dtype)

@@ -122,7 +122,7 @@ class PointCloudEngine:
         feats_t = torch.from_numpy(np.ascontiguousarray(f, np.float32))
         logits = MU.minkunet_apply(self.module, pc, feats_t.to(self.device),
                                    flow=self.flow, levels=levels)
-        return torch.argmax(logits, dim=-1)[:n], hit
+        return torch.argmax(logits, dim=-1)[:n].to(torch.int32), hit
 
     def segment_batch(self, *args, **kwargs):
         raise NotImplementedError(_BATCHED)

@@ -56,6 +56,20 @@ def test_segment_matches_reference_engine_and_hits_cache(mini):
     np.testing.assert_array_equal(got.numpy()[mask], np.asarray(want)[mask])
 
 
+def test_segment_labels_are_int32_like_reference(mini):
+    params, module = mini
+    coords, mask, feats = lidar_scene(6, 150, grid=16)
+    ref = PointCloudEngine(params, n_stages=2, flow="fod",
+                           ladder=geometric_ladder(64, 512))
+    port = TEngine(module, n_stages=2, device="cpu",
+                   ladder=TBK.geometric_ladder(64, 512))
+    want, _ = ref.segment(coords, mask, feats)
+    got, _ = port.segment(coords, mask, feats)
+    want = np.asarray(want)
+    assert want.dtype == np.int32 and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy()[mask], want[mask])
+
+
 def test_device_policy_and_unported_entry_points(mini):
     _, module = mini
     if torch.cuda.is_available():

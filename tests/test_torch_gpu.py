@@ -133,12 +133,20 @@ def test_flash_attention_kernel_matches_plain_version(hd, g, sq, skv, causal,
     assert F.LAUNCHES["flash_attention"] == before + 1
 
 
+def _decode_lengths(s):
+    """Unequal lengths: empty, one slot, around a 64-slot boundary, half,
+    full, and one past the cache (the kernel clamps it to S)."""
+    return [0, 1, min(63, s), min(64, s), min(65, s), s // 2 + 3, s, s + 7]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("q_dtype,kv_dtype", [
     ("float32", "float32"), ("bfloat16", "bfloat16"),
     ("float32", "bfloat16")])
 @pytest.mark.parametrize("hd,g,s,softcap", [
-    (64, 2, 1024, None), (128, 4, 301, 30.0), (256, 1, 77, None)])
+    (64, 2, 1024, None), (128, 4, 301, 30.0), (256, 1, 77, None),
+    (36, 2, 200, None),                      # 72-byte bf16 rows: 8-byte loads
+    (64, 8, 130, 20.0)])                     # two head groups a kv head
 def test_flash_decode_kernel_matches_plain_version(hd, g, s, softcap, q_dtype,
                                                    kv_dtype):
     if not torch.cuda.is_available():
@@ -146,24 +154,145 @@ def test_flash_decode_kernel_matches_plain_version(hd, g, s, softcap, q_dtype,
     from repro_torch.kernels.flash_decode import flash_decode as F
     from repro_torch.kernels.flash_decode.ref import flash_decode_ref
     rng = np.random.default_rng(hd + s)
-    b, hkv = 4, 2
+    lens = _decode_lengths(s)
+    b, hkv = len(lens), 2
     q = _cuda(rng, (b, hkv * g, hd), q_dtype)
     k = _cuda(rng, (b, s, hkv, hd), kv_dtype)
     v = _cuda(rng, (b, s, hkv, hd), kv_dtype)
-    lengths = torch.tensor([0, s, 1, s // 2 + 3], dtype=torch.int32,
-                           device="cuda")
-    before = F.LAUNCHES["flash_decode"]
-    got = F.flash_decode_cuda(q, k, v, lengths, softcap=softcap)
-    torch.cuda.synchronize()
-    assert got.dtype == q.dtype and got.shape == q.shape
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
     want = flash_decode_ref(q, k, v, lengths, softcap=softcap)
     tol = _tol("bfloat16" if "bfloat16" in (q_dtype, kv_dtype) else
                "float32")
-    torch.testing.assert_close(got.float(), want.float(), **tol)
-    # an empty sequence reads nothing and writes zeros, as the Pallas
-    # kernel does
-    assert bool((got[0] == 0).all())
+    before = F.LAUNCHES["flash_decode"]
+    splits = [None] + list(range(1, F.MAX_SPLIT + 1))   # planned, then each
+    for n_split in splits:
+        got = F.flash_decode_cuda(q, k, v, lengths, softcap=softcap,
+                                  n_split=n_split)
+        torch.cuda.synchronize()
+        assert got.dtype == q.dtype and got.shape == q.shape
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        # an empty sequence reads nothing and writes zeros, as the Pallas
+        # kernel does
+        assert bool((got[0] == 0).all())
+    assert F.LAUNCHES["flash_decode"] == before + len(splits)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd,kv_dtype", [(64, "bfloat16"), (36, "bfloat16"),
+                                         (128, "float32")])
+def test_flash_decode_kernel_matches_split_plain_version(hd, kv_dtype):
+    """At each forced split the kernel equals `flash_decode_split_ref` at
+    that split (the chunk rule taken from the same launch plan), lengths
+    that leave chunks empty included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.kernels.flash_decode import flash_decode as F
+    from repro_torch.kernels.flash_decode.ref import flash_decode_split_ref
+    rng = np.random.default_rng(hd)
+    s, hkv, g = 300, 2, 2
+    lens = _decode_lengths(s)
+    b = len(lens)
+    q = _cuda(rng, (b, hkv * g, hd), "float32")
+    k = _cuda(rng, (b, s, hkv, hd), kv_dtype)
+    v = _cuda(rng, (b, s, hkv, hd), kv_dtype)
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    for n_split in range(1, F.MAX_SPLIT + 1):
+        got = F.flash_decode_cuda(q, k, v, lengths, softcap=30.0,
+                                  n_split=n_split)
+        want = flash_decode_split_ref(q, k, v, lengths, n_split, softcap=30.0)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **_tol("float32"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset,vec", [(0, 16), (1, 2), (4, 8)])
+def test_flash_decode_kernel_takes_unaligned_caches(offset, vec):
+    """A cache view `offset` bf16 elements into its storage takes the
+    widest load its alignment allows, in the same kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.kernels.flash_decode import flash_decode as F
+    from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+    rng = np.random.default_rng(offset)
+    b, hkv, g, s, hd = 4, 8, 2, 300, 64
+    q = _cuda(rng, (b, hkv * g, hd), "bfloat16")
+    n = b * s * hkv * hd
+    k, v = (_cuda(rng, (n + offset,), "bfloat16")[offset:].view(
+        b, s, hkv, hd) for _ in range(2))
+    lengths = torch.tensor([s, 5, 0, 170], dtype=torch.int32, device="cuda")
+    plan = F.plan_launch(q, k, v, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    assert plan.vec == vec
+    got = F.flash_decode_cuda(q, k, v, lengths)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(),
+                               flash_decode_ref(q, k, v, lengths).float(),
+                               **_tol("bfloat16"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", ["float32", "bfloat16"])
+def test_flash_decode_kernel_reads_nothing_past_lengths(kv_dtype):
+    """Slots at and past len_b hold NaN: the kernel's output is finite and
+    equals the plain version on the same cache with those slots zeroed (the
+    plain version itself multiplies p = 0 by NaN there)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.kernels.flash_decode import flash_decode as F
+    from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+    rng = np.random.default_rng(11)
+    s, hkv, g, hd = 512, 8, 2, 64
+    lens = _decode_lengths(s)
+    b = len(lens)
+    q = _cuda(rng, (b, hkv * g, hd), "bfloat16")
+    k = _cuda(rng, (b, s, hkv, hd), kv_dtype)
+    v = _cuda(rng, (b, s, hkv, hd), kv_dtype)
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    past = torch.arange(s, device="cuda")[None, :] >= lengths[:, None]
+    k_nan = k.masked_fill(past[:, :, None, None], float("nan"))
+    v_nan = v.masked_fill(past[:, :, None, None], float("nan"))
+    want = flash_decode_ref(q, k.masked_fill(past[:, :, None, None], 0),
+                            v.masked_fill(past[:, :, None, None], 0), lengths)
+    for n_split in (None, 1, 3, 8):
+        got = F.flash_decode_cuda(q, k_nan, v_nan, lengths, n_split=n_split)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **_tol("bfloat16"))
+
+
+@pytest.mark.gpu
+def test_flash_decode_kernel_replays_in_a_cuda_graph_with_new_lengths():
+    """No host read of `lengths`: a captured call replays with lengths
+    changed on the device and matches the plain version at the new ones."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.kernels.flash_decode import flash_decode as F
+    from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+    rng = np.random.default_rng(12)
+    b, s, hkv, g, hd = 8, 1024, 8, 2, 64
+    q = _cuda(rng, (b, hkv * g, hd), "bfloat16")
+    k = _cuda(rng, (b, s, hkv, hd), "bfloat16")
+    v = _cuda(rng, (b, s, hkv, hd), "bfloat16")
+    lengths = torch.full((b,), 513, dtype=torch.int32, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        F.flash_decode_cuda(q, k, v, lengths)      # warm-up: build, load
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = F.LAUNCHES["flash_decode"]
+    with torch.cuda.graph(graph):
+        out = F.flash_decode_cuda(q, k, v, lengths)
     assert F.LAUNCHES["flash_decode"] == before + 1
+    for lens in ([513] * b, [0, 1, 64, 65, 700, 1024, 2000, 7]):
+        lengths.copy_(torch.tensor(lens, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(
+            out.float(), flash_decode_ref(q, k, v, lengths).float(),
+            **_tol("bfloat16"))
+    assert F.LAUNCHES["flash_decode"] == before + 1   # a replay skips Python
 
 
 @pytest.mark.gpu
@@ -175,7 +304,7 @@ def test_flash_decode_kernel_matches_plain_version(hd, g, s, softcap, q_dtype,
     # K and N tails (200 = 3 x 64 + 8, 136 = 128 + 8); experts 6 and 0 come
     # before others, so a K tail read past their Cin rows would show
     (128, [6, 7, 0, 7, 2, 6], 200, 136),
-    (256, [1, 9, -3, 7], 256, 128)])             # ids out of range: clamped
+    (256, [1, 9, -3, 7], 256, 128)])             # ids out of range
 def test_grouped_matmul_kernel_matches_plain_version(row_tile, eids, cin, cout,
                                                      dtype):
     if not torch.cuda.is_available():
@@ -194,7 +323,11 @@ def test_grouped_matmul_kernel_matches_plain_version(row_tile, eids, cin, cout,
     got = F.grouped_matmul_cuda(x, eid, w, row_tile)
     torch.cuda.synchronize()
     assert got.dtype == x.dtype and got.shape == (x.shape[0], cout)
-    want = grouped_matmul_ref(x, eid.clamp(0, w.shape[0] - 1), w, row_tile)
+    # ids out of range take the reference's rule (jnp indexing): a negative
+    # id wraps once (+E), then the id clamps to [0, E - 1]: 9 -> 7, -3 -> 5
+    e = w.shape[0]
+    ref_eid = torch.where(eid < 0, eid + e, eid).clamp(0, e - 1)
+    want = grouped_matmul_ref(x, ref_eid, w, row_tile)
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
     moved = {k: F.LAUNCHES[k] - before[k] for k in before}
     assert moved == {"grouped_matmul": 1,

@@ -211,6 +211,23 @@ def test_generate_matches_reference_tokens_f32(granite, prompts):
     np.testing.assert_array_equal(got, np.asarray(want))
 
 
+def test_generate_past_max_len_matches_reference(granite, prompts):
+    """Decoding past the cache's last slot: the reference's
+    dynamic_update_slice clamps the write into slot max_len - 1 and keeps
+    going; the port writes the same slot and returns the same tokens."""
+    rmodel, rparams, tmodel, module = granite
+    max_len = S + 2
+    want = RServeEngine(rmodel, rparams, RServeConfig(
+        max_len=max_len, cache_dtype=jnp.float32,
+        compute_dtype=jnp.float32)).generate(prompts, max_new_tokens=6)
+    eng = ServeEngine(tmodel, module, ServeConfig(
+        max_len=max_len, cache_dtype=torch.float32,
+        compute_dtype=torch.float32), device="cpu")
+    got = eng.generate(prompts, max_new_tokens=6)
+    assert got.dtype == np.int32 and got.shape == (B, 6)
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
 def test_device_policy(granite, monkeypatch):
     _, _, tmodel, module = granite
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -22,6 +22,7 @@ from repro.kernels.flash_decode.flash_decode import flash_decode_pallas
 from repro.kernels.flash_decode.ref import flash_decode_ref as r_decode
 from repro.kernels.grouped_matmul import ops as r_gmm
 from repro.kernels.grouped_matmul.grouped_matmul import grouped_matmul_pallas
+from repro.kernels.grouped_matmul.ref import grouped_matmul_ref as r_gmm_ref
 from repro.models import layers as RL
 from repro.models import moe as RM
 from repro_torch.configs import get as tget
@@ -30,7 +31,8 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.flash_decode import flash_decode as FD
 from repro_torch.kernels.flash_decode import ops as fd_ops
-from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+from repro_torch.kernels.flash_decode.ref import (flash_decode_ref,
+                                                  flash_decode_split_ref)
 from repro_torch.kernels.grouped_matmul import grouped_matmul as GM
 from repro_torch.kernels.grouped_matmul import ops as gmm
 from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref
@@ -128,10 +130,113 @@ def test_decode_matches_oracle_and_pallas(g, softcap, dtype):
     _close(got[1:], np.asarray(want, np.float32)[1:], dtype)
 
 
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 200, 1024, 4096])
+def test_plan_splits_stays_in_its_bounds(s):
+    """The split count comes from shapes and the SM count only: a power of
+    two, never above 8 or ceil(S / 64), the smallest that gives 2 x n_sm
+    CTAs where the cap allows; the main path (B 8 x Hkv 8, S 1024) gets 8."""
+    n_sm, cap = 132, min(8, -(-s // 64))
+    for bh in range(1, 257):
+        n = FD.plan_splits(bh, s, n_sm)
+        assert 1 <= n <= cap and n & (n - 1) == 0
+        assert bh * n >= 2 * n_sm or 2 * n > cap
+        assert n == 1 or bh * (n // 2) < 2 * n_sm
+    if s == 1024:
+        assert FD.plan_splits(64, s, n_sm) == 8
+
+
+def _bf16_cache(shape, offset=0):
+    """A zero bf16 cache of `shape` starting `offset` elements into its
+    storage."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + offset, dtype=torch.bfloat16)[offset:].view(shape)
+
+
+@pytest.mark.parametrize("hd,g,dtype,offset,want", [
+    (64, 2, torch.bfloat16, 0, (16, 1, 8, 2)),     # the main path
+    (36, 2, torch.bfloat16, 0, (8, 1, 16, 2)),     # 72-byte rows
+    (64, 2, torch.bfloat16, 1, (2, 2, 32, 2)),     # cache 2 bytes off
+    (64, 2, torch.bfloat16, 4, (8, 1, 16, 2)),     # cache 8 bytes off
+    (256, 1, torch.float32, 0, (16, 2, 32, 1)),
+    (128, 4, torch.float32, 0, (16, 1, 32, 4)),
+    (8, 8, torch.bfloat16, 0, (16, 1, 1, 4))])     # two head groups
+def test_plan_launch_picks_widths_from_shapes_and_alignment(hd, g, dtype,
+                                                            offset, want):
+    b, hkv, s = 8, 8, 1024
+    q = torch.zeros((b, hkv * g, hd), dtype=dtype)
+    if dtype == torch.bfloat16:
+        k = _bf16_cache((b, s, hkv, hd), offset)
+    else:
+        k = torch.zeros((b, s, hkv, hd), dtype=dtype)
+    plan = FD.plan_launch(q, k, k, n_sm=132)
+    assert (plan.vec, plan.nv, plan.gs, plan.gt) == want
+    n_hg = -(-g // plan.gt)
+    assert plan.grid == (b * hkv * n_hg, plan.n_split)
+    assert plan.n_split == FD.plan_splits(b * hkv * n_hg, s, 132)
+    assert plan.cluster == (plan.n_split > 1)
+    assert plan.gs * plan.nv * plan.vec >= hd * k.element_size()
+    assert plan.smem == FD.smem_bytes(plan.gs, plan.gt, hd,
+                                 plan.n_split) <= FD.SMEM_BYTES
+    if (hd, g, offset) == (64, 2, 0):
+        assert plan.n_split == 8 and plan.ctas == 512
+    forced = FD.plan_launch(q, k, k, n_sm=132, n_split=3)
+    assert forced.grid == (plan.grid[0], 3) and forced.cluster
+    with pytest.raises(ValueError, match="n_split"):
+        FD.plan_launch(q, k, k, n_sm=132, n_split=9)
+
+
+def test_plan_launch_raises_for_rows_it_cannot_hold():
+    q = torch.zeros((1, 1, 4096), dtype=torch.bfloat16)
+    k = torch.zeros((1, 4, 1, 4096), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim 4096"):
+        FD.plan_launch(q, k, k, n_sm=132)
+
+
+@pytest.fixture(scope="module")
+def split_case():
+    """Decode operands with lengths 0, 1, 77 and S, and the reference's
+    oracle and Pallas kernel (interpret mode) on them."""
+    rng = np.random.default_rng(5)
+    b, hkv, g, s, hd = 4, 2, 2, 256, 32
+    qj, qt = _pair(rng.normal(size=(b, hkv * g, hd)), "float32")
+    kj, kt = _pair(rng.normal(size=(b, s, hkv, hd)), "float32")
+    vj, vt = _pair(rng.normal(size=(b, s, hkv, hd)), "float32")
+    lengths = np.array([0, 1, 77, s], np.int32)
+    oracle = np.asarray(r_decode(qj, kj, vj, jnp.asarray(lengths),
+                                 softcap=30.0), np.float32)
+    pallas = np.asarray(flash_decode_pallas(
+        qj, kj, vj, jnp.asarray(lengths), softcap=30.0, block_s=128,
+        interpret=True), np.float32)
+    return (qt, kt, vt, torch.from_numpy(lengths)), oracle, pallas
+
+
+@pytest.mark.parametrize("n_split", range(1, 9))
+def test_split_plain_version_matches_oracle_and_pallas(split_case, n_split):
+    """The kernel's chunk rule and log-sum-exp merge, in plain PyTorch, at
+    every split count: length 1 leaves every chunk but the first empty,
+    length 0 every chunk (zeros, as the Pallas kernel writes; the oracle
+    averages every slot there)."""
+    (q, k, v, lengths), oracle, pallas = split_case
+    # caches 0, 4 and 8 bytes into their storage: the launch plan takes
+    # 16-, 4- and 8-byte loads, so chunks round up to 4, 1 and 2 positions
+    for offset, align in ((0, 4), (1, 1), (2, 2)):
+        ko, vo = (torch.cat([t.new_zeros(offset), t.flatten()])[offset:]
+                  .view(t.shape) for t in (k, v))
+        assert 32 // FD.plan_launch(q, ko, vo, 0, n_split).gs == align
+        got = flash_decode_split_ref(q, ko, vo, lengths, n_split,
+                                     softcap=30.0)
+        assert got.dtype == q.dtype and got.shape == q.shape
+        assert bool(torch.isfinite(got).all())
+        _close(got, pallas, "float32")
+        _close(got[1:], oracle[1:], "float32")
+        np.testing.assert_array_equal(got[0].numpy(), 0.0)
+
+
 @pytest.mark.parametrize("s_cache,window,positions", [
     (16, None, [3, 15]),       # full attention: a prefix of pos + 1 slots
     (8, 8, [5, 19]),           # ring buffer, the second one wrapped
-    (16, 4, [2, 9])])          # window inside a longer cache: no prefix
+    (16, 4, [2, 9]),           # window inside a longer cache: no prefix
+    (16, None, [16, 21])])     # past the cache: the write clamps to slot 15
 def test_decode_attention_matches_reference_masked_path(s_cache, window,
                                                         positions):
     """attention_apply's decode mode (flash_decode with lengths =
@@ -192,6 +297,24 @@ def test_grouped_matmul_matches_pallas(row_tile, eids, cin, cout, dtype):
     _close(got, grouped_matmul_pallas(xj, jnp.asarray(eid), wj,
                                       row_tile=row_tile, interpret=True),
            dtype)
+
+
+def test_grouped_matmul_out_of_range_ids_follow_reference():
+    """Ids out of range take the reference's rule (jnp indexing: a negative
+    id wraps once, then clamps): with E = 8, ids (9, -3, -10) take experts
+    (7, 5, 0), in the oracle and in the Pallas kernel; the CUDA kernels
+    apply the same rule (`expert_id`, held on the card)."""
+    rng = np.random.default_rng(8)
+    row_tile, cin, cout, e = 8, 16, 24, 8
+    eids = np.array([9, -3, -10], np.int32)
+    xj, xt = _pair(rng.normal(size=(row_tile * len(eids), cin)), "float32")
+    wj, wt = _pair(rng.normal(size=(e, cin, cout)), "float32")
+    got = gmm.grouped_matmul(xt, torch.from_numpy(eids), wt, row_tile)
+    _close(got, r_gmm_ref(xj, jnp.asarray(eids), wj, row_tile), "float32")
+    n = 2 * row_tile            # ids 9 and -3 through the Pallas kernel
+    _close(got[:n], grouped_matmul_pallas(
+        xj[:n], jnp.asarray(eids[:2]), wj, row_tile=row_tile,
+        interpret=True), "float32")
 
 
 _LM = tget(ARCH)
