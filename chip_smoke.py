@@ -9,10 +9,11 @@ Phases (any failure exits non-zero; none catches its own):
   1. device: the card's name and power limit (nvidia-smi).
   2. build: every `csrc/*.cu` of `repro_torch` with nvcc for sm_90a, one
      nvcc each, in parallel; `cuobjdump -sass` must show HGMMA (tensor-core
-     wgmma) in `grouped_matmul_wgmma_kernel`, and a 128-bit global load
-     (LDG.E.128 or LDGSTS.128) in the `flash_decode_kernel` instance that
-     the decode step's shapes take, whose registers and spills (ptxas -v)
-     are printed.
+     wgmma) in `grouped_matmul_wgmma_kernel` and in the
+     `flash_attention_wgmma_kernel` instance the prefill takes (head_dim
+     64), and a 128-bit global load (LDG.E.128 or LDGSTS.128) in the
+     `flash_decode_kernel` instance that the decode step's shapes take;
+     those two instances' registers and spills (ptxas -v) are printed.
   3. kernels: one full-width MinkUNet forward (plain torch flow "fod") on a
      50k-point city scene in the 65536 bucket records the inputs of all 41
      sparse convs.  Each kernel is held against its plain PyTorch version
@@ -69,21 +70,24 @@ Phases (any failure exits non-zero; none catches its own):
      Each kernel is held against its plain version on them at float32
      (max|kernel - plain| <= 1e-5 * max|plain|: sums in another order) and
      at bf16 (<= 8e-3 * max|plain|: one bf16 rounding of the output
-     scale).  grouped_matmul takes its float32-FMA kernel at float32 and
-     its tensor-core (wgmma) kernel at bf16, and each check must move that
-     variant's launch count; the FMA kernel is held at bf16 too, and the
-     tensor-core kernel run without its last 64-deep K stage must fail the
-     bf16 check (negative control).  Each kernel is timed at bf16 as
-     device time a call (CUDA graph; the
-     calls take turns over enough copies of the operands that each reads
-     them from device memory, not from L2) beside its plain version and
-     one library call (SDPA with is_causal and
+     scale).  flash_attention and grouped_matmul take their float32-FMA
+     kernels at float32 and their tensor-core (wgmma) kernels at bf16, and
+     each check must move that variant's launch count; the FMA kernels are
+     held at bf16 too, and two negative controls must fail the bf16 check:
+     the tensor-core grouped_matmul without its last 64-deep K stage, the
+     tensor-core flash_attention on K/V without their last 128 keys.  Each
+     kernel is timed at bf16 as device time a call (CUDA graph; the calls
+     take turns over enough copies of the operands that each reads them
+     from device memory, not from L2) beside its plain version and one
+     library call (SDPA with is_causal and
      enable_gqa; `torch.bmm` over the (E, capacity, Cin) view; SDPA over
      the cache's valid prefix), with its bound: the larger of the bytes
      read and written once at 3.35 TB/s and the operations the masks
-     leave at 989 TFLOP/s (bf16); grouped_matmul's earlier FMA kernel is
-     timed the same way.  flash_attention is also checked with a
-     window and a softcap and at head_dim 128 and 256; flash_decode, at
+     leave at 989 TFLOP/s (bf16); the earlier FMA kernels of
+     flash_attention and grouped_matmul are timed the same way.
+     flash_attention is also checked with a window and a softcap and at
+     head_dim 128 and 256, each on the variant `variant` names (printed,
+     and its launch count must move); flash_decode, at
      the decode step's widths with operands from a seed, at unequal
      lengths (0, 1, 63, 64, 65, 511, 1024 and one past S) and at every
      split count 1..8, each printed with its launch plan (n_split, CTAs,
@@ -93,8 +97,8 @@ Phases (any failure exits non-zero; none catches its own):
      warm up and three timed runs; prefill ms, decode ms a step and
      tokens/s on the host clock around synchronised calls.  Launch counts
      are zeroed just before and read just after: 24 flash_attention and 72
-     grouped_matmul launches a prefill, all 72 on the tensor-core kernel,
-     24 flash_decode a decode step.
+     grouped_matmul launches a prefill, all on the tensor-core kernels, 24
+     flash_decode a decode step.
   10. LM correctness: the plain path (all three kernels swapped for their
      plain versions here) is teacher-forced on the kernel path's tokens,
      and prefill and every decode step's logits compared: at bf16 (the
@@ -102,8 +106,8 @@ Phases (any failure exits non-zero; none catches its own):
      engine with compute and cache in float32) within 1e-4 * max|plain|;
      a greedy token may differ only where the plain top-2 gap is below the
      same bound; the float32 run's prefill must launch the FMA
-     grouped_matmul 72 times.  Three negative controls at float32 must be
-     rejected:
+     flash_attention 24 times and the FMA grouped_matmul 72 times.  Three
+     negative controls at float32 must be rejected:
      flash_attention skipping its last kv tile, grouped_matmul writing
      expert 0's tiles as zeros, flash_decode reading lengths - 1.
   11. a {"kernels": [...]} line (six kernels), the nvidia-smi line, and
@@ -157,6 +161,7 @@ LM_PLAIN_STEPS = 8           # decode steps of the kernel phase's plain run
 LM_CONTROL_STEPS = 4         # decode steps of each negative control
 LM_F32_TOL = 1e-4            # teacher-forced logits: err <= tol * max|plain|
 LM_BF16_TOL = 8e-3           # kernel phase at bf16: one rounding of the scale
+FA_CONTROL_KEYS = 128        # keys the flash_attention negative control drops
 LM_KERNEL_F32_TOL = 1e-5     # kernel phase at f32
 LM_BF16_PATH_TOL = 5e-2      # teacher-forced logits at bf16
 LM_NEAR_TIE = {"f32": 1e-4, "bf16": 2.0 ** -5}  # routing flips: gap / p_k
@@ -873,8 +878,8 @@ def lm_phases(dev, mem_rate: float, bf16_rate: float, with_profile: bool):
 
     def calls(kind, args, dtype=None):
         """(kernel, plain, library) zero-argument calls on args, cast to
-        dtype when given; grouped_matmul adds its earlier float32-FMA
-        kernel."""
+        dtype when given; flash_attention and grouped_matmul add their
+        earlier float32-FMA kernel."""
         cast = (lambda t: t.to(dtype)) if dtype is not None else (lambda t: t)
         if kind == "flash_attention":
             q, k, v, kw = args
@@ -883,7 +888,8 @@ def lm_phases(dev, mem_rate: float, bf16_rate: float, with_profile: bool):
                     lambda: attention_ref(q, k, v, **kw),
                     lambda: F.scaled_dot_product_attention(
                         q, k, v, is_causal=True, scale=kw["scale"],
-                        enable_gqa=True))
+                        enable_gqa=True),
+                    lambda: FAK.flash_attention_fma(q, k, v, **kw))
         if kind == "grouped_matmul":
             x, eid, w, rt = args
             x, w = cast(x), cast(w)
@@ -919,6 +925,21 @@ def lm_phases(dev, mem_rate: float, bf16_rate: float, with_profile: bool):
         k = (x.shape[1] - 1) // GMK.WGMMA_K_STEP * GMK.WGMMA_K_STEP
         return GMK.grouped_matmul_wgmma(x[:, :k].contiguous(), eid,
                                         w[:, :k].contiguous(), rt)
+
+    def fa_without_last_keys(q, k, v, kw):
+        """The tensor-core kernel on K/V without their last
+        FA_CONTROL_KEYS keys."""
+        n = k.shape[2] - FA_CONTROL_KEYS
+        return FAK.flash_attention_wgmma(q, k[:, :, :n].contiguous(),
+                                         v[:, :, :n].contiguous(), **kw)
+
+    controls = {
+        "grouped_matmul": (gmm_skip_last_k_stage, f"tensor-core kernel "
+                           f"skipping its last {GMK.WGMMA_K_STEP}-deep K "
+                           f"stage"),
+        "flash_attention": (fa_without_last_keys, f"tensor-core kernel on "
+                            f"K/V without their last {FA_CONTROL_KEYS} "
+                            f"keys")}
 
     def work(kind, args):
         """(bytes, FLOPs) the call needs: each input read once, each output
@@ -961,12 +982,12 @@ def lm_phases(dev, mem_rate: float, bf16_rate: float, with_profile: bool):
     stats = {k: {"n": 0, "ms": 0.0, "plain": 0.0, "lib": 0.0, "earlier": 0.0,
                  "bound": 0.0, "bytes": 0.0, "ops": 0.0, "err": 0.0}
              for k in ("flash_attention", "grouped_matmul", "flash_decode")}
-    gmm_notes = []
+    notes = []
     for kind, site, args in sites:
         rels = {}
         for label, dtype in (("f32", torch.float32), ("bf16", None)):
             fns = calls(kind, args, dtype)
-            before = dict(GMK.LAUNCHES)
+            before = {**GMK.LAUNCHES, **FAK.LAUNCHES}
             got, want = fns[0](), fns[1]()
             torch.cuda.synchronize()
             tol = LM_KERNEL_F32_TOL if label == "f32" else LM_BF16_TOL
@@ -979,33 +1000,30 @@ def lm_phases(dev, mem_rate: float, bf16_rate: float, with_profile: bool):
                     f"{scale}")
             if label == "bf16":
                 stats[kind]["err"] = max(stats[kind]["err"], err)
-            if kind != "grouped_matmul":
+            if kind == "flash_decode":
                 continue
             # the check reached the kernel the selection rule names: the
             # float32-FMA kernel at f32 (no TF32), the tensor cores at bf16
-            ran = "fma" if label == "f32" else "wgmma"
-            if GMK.LAUNCHES[f"grouped_matmul_{ran}"] != \
-                    before[f"grouped_matmul_{ran}"] + 1:
-                raise AssertionError(f"grouped_matmul at {label} did not "
-                                     f"launch its {ran} kernel")
+            ran = f"{kind}_{'fma' if label == 'f32' else 'wgmma'}"
+            if {**GMK.LAUNCHES, **FAK.LAUNCHES}[ran] != before[ran] + 1:
+                raise AssertionError(f"{kind} at {label} did not launch "
+                                     f"{ran}")
             if label == "f32":
                 continue
+            control, what = controls[kind]
             ok_e, err_e, _ = kernel_check(fns[3](), want, tol)
-            ok_c, err_c, _ = kernel_check(gmm_skip_last_k_stage(*args), want,
-                                          tol)
+            ok_c, err_c, _ = kernel_check(control(*args), want, tol)
             torch.cuda.synchronize()
-            gmm_notes.append(
-                f"grouped_matmul {site}: earlier FMA kernel at bf16 "
-                f"{err_e / scale:.2e}; negative control (tensor-core kernel "
-                f"skipping its last {GMK.WGMMA_K_STEP}-deep K stage) "
+            notes.append(
+                f"{kind} {site}: earlier FMA kernel at bf16 "
+                f"{err_e / scale:.2e}; negative control ({what}) "
                 f"{err_c / scale:.2e} -> {'ACCEPTED' if ok_c else 'rejected'}")
             if not ok_e:
-                raise AssertionError(f"the FMA grouped_matmul disagrees with "
-                                     f"its plain version at {site} (bf16)")
+                raise AssertionError(f"the FMA {kind} disagrees with its "
+                                     f"plain version at {site} (bf16)")
             if ok_c:
-                raise AssertionError("the bf16 kernel check accepts "
-                                     "grouped_matmul without its last K "
-                                     "stage")
+                raise AssertionError(f"the bf16 kernel check accepts the "
+                                     f"{what}")
         nbytes, flops = work(kind, args)
         copies = cold_copies(args, nbytes, l2_bytes)
         fns = [calls(kind, a) for a in copies]
@@ -1030,7 +1048,7 @@ def lm_phases(dev, mem_rate: float, bf16_rate: float, with_profile: bool):
               f"{max(b_bytes, b_ops):8.4f} "
               f"{'ops' if b_ops >= b_bytes else 'bytes':>5s} "
               + (f"{t[3]:8.4f}" if len(t) > 3 else f"{'-':>8s}"))
-    for line in gmm_notes:
+    for line in notes:
         print(line)
     fd_args = next(a for kind, _, a in sites if kind == "flash_decode")
     fd_plan = FDK.plan_launch(*fd_args[:3], torch.cuda.get_device_properties(
@@ -1068,13 +1086,20 @@ def lm_phases(dev, mem_rate: float, bf16_rate: float, with_profile: bool):
             q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(
                 np.float32)).to(dev, dtype) for shape in
                 ((2, 2 * g, n, hd), (2, 2, n, hd), (2, 2, n, hd)))
+            ran = FAK.variant(dtype, hd, g, [t.data_ptr() % 16
+                                            for t in (q, k, v)])
+            before = FAK.LAUNCHES[f"flash_attention_{ran}"]
             got = FAK.flash_attention_cuda(q, k, v, **kw)
             want = attention_ref(q, k, v, **kw)
             scale = float(want.float().abs().max())
             err = float((got.float() - want.float()).abs().max())
             tol = LM_KERNEL_F32_TOL if dtype == torch.float32 else LM_BF16_TOL
             print(f"flash_attention hd {hd}, G {g}, S {n}, {kw}, {dtype}: "
-                  f"max abs err {err:.2e}, max|plain| {scale:.3g}")
+                  f"{ran} kernel, max abs err {err:.2e}, max|plain| "
+                  f"{scale:.3g}")
+            if FAK.LAUNCHES[f"flash_attention_{ran}"] != before + 1:
+                raise AssertionError(f"flash_attention at hd {hd} {dtype} "
+                                     f"did not launch its {ran} kernel")
             if not err <= tol * scale:
                 raise AssertionError(f"flash_attention disagrees at hd {hd} "
                                      f"{kw} {dtype}")
@@ -1142,6 +1167,8 @@ def lm_phases(dev, mem_rate: float, bf16_rate: float, with_profile: bool):
     launches = {**FAK.LAUNCHES, **GMK.LAUNCHES, **FDK.LAUNCHES}
     n_dec = len(step_ms["decode"])
     want_launch = {"flash_attention": 4 * cfg.n_layers,
+                   "flash_attention_wgmma": 4 * cfg.n_layers,
+                   "flash_attention_fma": 0,
                    "grouped_matmul": 4 * 3 * cfg.n_layers,
                    "grouped_matmul_wgmma": 4 * 3 * cfg.n_layers,
                    "grouped_matmul_fma": 0,
@@ -1172,8 +1199,9 @@ def lm_phases(dev, mem_rate: float, bf16_rate: float, with_profile: bool):
 
     if with_profile:
         from torch.profiler import ProfilerActivity, profile
-        names = ("flash_attention_kernel", "grouped_matmul_wgmma_kernel",
-                 "grouped_matmul_kernel", "flash_decode_kernel")
+        names = ("flash_attention_wgmma_kernel", "flash_attention_fma_kernel",
+                 "grouped_matmul_wgmma_kernel", "grouped_matmul_kernel",
+                 "flash_decode_kernel")
         dev_b = {"tokens": torch.as_tensor(prompts, dtype=torch.int64,
                                            device=dev),
                  "positions": torch.arange(s, device=dev).expand(b, s)}
@@ -1280,15 +1308,18 @@ def lm_phases(dev, mem_rate: float, bf16_rate: float, with_profile: bool):
         max_len=LM_MAX_LEN, compute_dtype=torch.float32,
         cache_dtype=torch.float32), device=dev)
     GMK.reset_launch_counts()
+    FAK.reset_launch_counts()
     gen32 = engine32.generate(prompts, max_new_tokens=LM_NEW)
-    gmm32 = dict(GMK.LAUNCHES)
+    l32 = {**FAK.LAUNCHES, **GMK.LAUNCHES}
     print(f"LM f32 generate: tokens equal to the bf16 run's "
-          f"{float((gen32 == gen).mean()):.3f}; grouped_matmul launches "
-          f"{gmm32}")
-    if gmm32 != {"grouped_matmul": 3 * cfg.n_layers, "grouped_matmul_wgmma": 0,
-                 "grouped_matmul_fma": 3 * cfg.n_layers}:
-        raise AssertionError(f"f32 prefill grouped_matmul launches {gmm32}, "
-                             f"expected {3 * cfg.n_layers} on the FMA kernel")
+          f"{float((gen32 == gen).mean()):.3f}; prefill launches {l32}")
+    n = cfg.n_layers
+    if l32 != {"flash_attention": n, "flash_attention_wgmma": 0,
+               "flash_attention_fma": n, "grouped_matmul": 3 * n,
+               "grouped_matmul_wgmma": 0, "grouped_matmul_fma": 3 * n}:
+        raise AssertionError(f"f32 prefill launches {l32}, expected {n} "
+                             f"flash_attention and {3 * n} grouped_matmul, "
+                             f"all on the FMA kernels")
     want, plain_routes = check(engine32, gen32, "f32", LM_F32_TOL)
 
     real_gmm = GMK.grouped_matmul_cuda
@@ -1299,7 +1330,7 @@ def lm_phases(dev, mem_rate: float, bf16_rate: float, with_profile: bool):
         """Plain attention without the last kv tile (64 keys) that each
         CTA's block of 64 / G query positions reads."""
         g = q.shape[1] // k.shape[1]
-        bq = FAK.ROWS_PER_CTA // g
+        bq = FAK.FMA_ROWS_PER_CTA // g
         n = q.shape[2]
         qpos = torch.arange(n, device=q.device)[:, None]
         kpos = torch.arange(k.shape[2], device=q.device)[None, :]
@@ -1342,8 +1373,8 @@ def lm_phases(dev, mem_rate: float, bf16_rate: float, with_profile: bool):
     print(f"LM part: {time.perf_counter() - t_lm:.1f} s wall")
 
     src = "src/repro_torch/kernels/{0}/csrc/{0}.cu"
-    sources = {"grouped_matmul": "src/repro_torch/kernels/grouped_matmul/"
-                                 "csrc/grouped_matmul_wgmma.cu"}
+    sources = {name: src.format(name).replace(".cu", "_wgmma.cu")
+               for name in ("grouped_matmul", "flash_attention")}
     replaces = {
         "grouped_matmul":
             "src/repro/kernels/grouped_matmul/grouped_matmul.py:48",
@@ -1385,6 +1416,14 @@ def lm_phases(dev, mem_rate: float, bf16_rate: float, with_profile: bool):
         "earlier_source": src.format("grouped_matmul"),
         "earlier": "float32-FMA kernel (still taken for float32 and odd "
                    "widths)"})
+    entries[1].update({
+        "variant": "wgmma", "launches_by_variant": {
+            k: launches[f"flash_attention_{k}"] for k in ("wgmma", "fma")},
+        "earlier_ms": stats["flash_attention"]["earlier"]
+        / stats["flash_attention"]["n"],
+        "earlier_source": src.format("flash_attention"),
+        "earlier": "float32-FMA kernel (still taken for float32 and other "
+                   "head_dims, groups or alignments)"})
     entries[2].update({
         "n_split": fd_plan.n_split, "ctas": fd_plan.ctas,
         "cluster": fd_plan.cluster, "load_bytes": fd_plan.vec,
@@ -1478,6 +1517,21 @@ def main(argv) -> int:
         raise AssertionError("no HGMMA in grouped_matmul_wgmma_kernel's SASS")
     print(f"SASS: grouped_matmul_wgmma_kernel holds {len(hgmma)} HGMMA "
           f"instructions, e.g. {hgmma[0].split(';')[0]}")
+    # so does the bf16 prefill's attention, in the head_dim instance it takes
+    fa_name = f"flash_attention_wgmma_kernelILi{hd}E"
+    fa_regs = [v for k, v in ptxas_kernels(build.build_log.get(
+        "flash_attention_wgmma", "")).items() if fa_name in k]
+    if len(fa_regs) != 1:
+        raise AssertionError(f"ptxas reports {len(fa_regs)} kernels named "
+                             f"{fa_name}")
+    print(f"  ptxas: {fa_name} (the prefill's, head_dim {hd}): "
+          f"{fa_regs[0][0]} registers, spill stores/loads {fa_regs[0][1]}/"
+          f"{fa_regs[0][2]} bytes")
+    hgmma = sass_lines(libs["flash_attention_wgmma"], fa_name, "HGMMA")
+    if not hgmma:
+        raise AssertionError(f"no HGMMA in {fa_name}'s SASS")
+    print(f"SASS: {fa_name} holds {len(hgmma)} HGMMA instructions, e.g. "
+          f"{hgmma[0].split(';')[0]}")
 
     scenes = {key: city_scene(*key) for key in (SCENE_A, SCENE_B)}
     module = MU.minkunet_init(torch.Generator().manual_seed(0))

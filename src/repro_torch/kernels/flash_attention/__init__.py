@@ -1,2 +1,4 @@
-"""Blockwise (flash) attention for the LM prefill: a hand-written CUDA
-kernel (`csrc/flash_attention.cu`) and its plain version (`ref.py`)."""
+"""Blockwise (flash) attention for the LM prefill: two hand-written CUDA
+kernels (`csrc/flash_attention_wgmma.cu` on the tensor cores for bf16,
+`csrc/flash_attention.cu` on float32 FMAs for the rest) and their plain
+versions (`ref.py`)."""

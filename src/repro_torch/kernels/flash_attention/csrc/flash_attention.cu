@@ -1,17 +1,21 @@
-// Blockwise (flash) attention for Hopper (sm_90a), forward only.
+// Blockwise (flash) attention for Hopper (sm_90a) on float32 FMAs, forward only.
 //
 //   out[b, h, i] = softmax_j(mask(cap(scale * q[b, h, i] . k[b, h / G, j]))) @ v[b, h / G]
 //
 // with cap(s) = softcap * tanh(s / softcap) when a softcap is given, and mask keeping
 // j <= i (causal) and i - j < window (sliding window); masked logits are -1e30.
 //
-// Replaces src/repro/kernels/flash_attention/flash_attention.py:flash_attention_pallas
-// (body _kernel): the LM prefill's attention, one launch per attention layer.
+// Replaces src/repro/kernels/flash_attention/flash_attention.py:96 flash_attention_pallas
+// (body _kernel) where the tensor-core kernel (flash_attention_wgmma.cu) does not:
+// float32 (exact, no TF32) and every head_dim, group size or alignment that kernel
+// does not take; `flash_attention.py::variant` picks between them.  The LM prefill at
+// bf16 takes the tensor-core kernel.
 //
 // What bounds it on this card.  At granite-moe-1b's prefill (B 8, 16 query heads over
 // 8 kv heads, S 512, head_dim 64, bf16) the call must read q, k, v and write the
-// output: about 25 MB, 8 us at 3.35 TB/s.  The causal product is about 2.1 GFLOP
-// (QK^T and PV over the lower triangle), 2 us at 989 TFLOP/s.  So bytes bound it.
+// output: about 25 MB, 8 us at 3.35 TB/s.  The causal products are 4.3 GFLOP
+// (QK^T and PV over the lower triangle, 4 B Hq pairs D), 4.4 us at 989 TFLOP/s.  So
+// bytes bound it; on float32 FMAs (67 TFLOP/s) the products take 64 us.
 //
 // What the design does about it.
 //   * GQA reuse: one CTA owns (batch, kv head, block of BQ query positions) with all G
@@ -86,7 +90,7 @@ __host__ __device__ inline size_t smem_floats(int d) {
 }
 
 template <int NJ, bool BF16>
-__global__ void __launch_bounds__(kThreads) flash_attention_kernel(Params p) {
+__global__ void __launch_bounds__(kThreads) flash_attention_fma_kernel(Params p) {
   extern __shared__ float smem[];
   const int D = p.d, DP = D + 1;
   float* s_q = smem;                     // kRows x DP: scale * q, f32
@@ -241,14 +245,14 @@ cudaError_t launch(const Params& p, size_t smem, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (smem > kDefaultSmem && !raised[dev]) {
-    err = cudaFuncSetAttribute(flash_attention_kernel<NJ, BF16>,
+    err = cudaFuncSetAttribute(flash_attention_fma_kernel<NJ, BF16>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(kMaxSmem));
     if (err != cudaSuccess) return err;
     raised[dev] = true;
   }
   const dim3 grid((p.sq + p.bq - 1) / p.bq, p.b * p.hkv);
-  flash_attention_kernel<NJ, BF16><<<grid, kThreads, smem, stream>>>(p);
+  flash_attention_fma_kernel<NJ, BF16><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -268,10 +272,10 @@ cudaError_t dispatch(const Params& p, size_t smem, cudaStream_t stream) {
 // all bfloat16 (bf16 = 1), contiguous.  hq % hkv == 0 with G = hq / hkv <= 64; d a
 // multiple of 8 up to 256; window <= 0 and softcap <= 0 mean none.  Returns a
 // cudaError_t (0 = launched).
-extern "C" int flash_attention(const void* q, const void* k, const void* v, void* o,
-                               int b, int hq, int hkv, int sq, int skv, int d,
-                               int causal, int window, float softcap, float scale,
-                               int bf16, void* stream) {
+extern "C" int flash_attention_fma(const void* q, const void* k, const void* v,
+                                   void* o, int b, int hq, int hkv, int sq, int skv,
+                                   int d, int causal, int window, float softcap,
+                                   float scale, int bf16, void* stream) {
   if (b <= 0 || hkv <= 0 || hq % hkv != 0 || hq / hkv > kRows || sq <= 0 || skv < 0 ||
       d <= 0 || d % 8 != 0 || d > 256)
     return cudaErrorInvalidValue;

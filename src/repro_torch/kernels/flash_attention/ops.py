@@ -3,7 +3,7 @@
 The reference's `ops.flash_attention` wraps its Pallas kernel in a custom
 VJP whose backward recomputes through `attention_ref`; the port serves and
 does not train yet, so this is the forward alone (the backward is listed in
-ROADMAP.md).  Nothing is padded: the CUDA kernel masks any Sq and Skv.
+ROADMAP.md).  Nothing is padded: both CUDA kernels mask any Sq and Skv.
 """
 
 from __future__ import annotations

@@ -106,14 +106,23 @@ def _tol(dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("hd,g,sq,skv,causal,window,softcap", [
-    (64, 2, 512, 512, True, None, None),    # the LM prefill's shape class
-    (64, 1, 300, 300, True, None, None),    # odd S: ragged q and kv tiles
-    (128, 4, 200, 333, False, None, 30.0),  # cross lengths, softcap
-    (256, 2, 190, 190, True, 50, None),     # sliding window, widest head
-    (8, 8, 70, 70, True, 16, 20.0)])
+@pytest.mark.parametrize("hd,g,sq,skv,causal,window,softcap,bf16_kind", [
+    (64, 2, 512, 512, True, None, None, "wgmma"),   # the LM prefill's class
+    (64, 1, 300, 300, True, None, None, "wgmma"),   # odd S: ragged tiles
+    (128, 4, 200, 333, False, None, 30.0, "wgmma"),  # cross lengths, softcap
+    (256, 2, 190, 190, True, 50, None, "wgmma"),    # sliding window, widest
+    (8, 8, 70, 70, True, 16, 20.0, "fma"),          # head_dim 8
+    (64, 2, 300, 500, True, None, None, "wgmma"),   # Sq < Skv, causal
+    (64, 2, 333, 150, False, None, None, "wgmma"),  # Sq > Skv
+    (64, 2, 400, 400, True, 20, None, "wgmma"),     # window < a kv tile
+    # 128 positions a CTA: the second warpgroup's rows are all masked in
+    # the CTA's first kv tile, before their first real key
+    (64, 1, 384, 384, True, 10, None, "wgmma"),
+    (192, 8, 130, 130, True, None, 50.0, "wgmma"),
+    (96, 2, 100, 100, True, None, None, "fma")])    # not whole 128-byte rows
 def test_flash_attention_kernel_matches_plain_version(hd, g, sq, skv, causal,
-                                                      window, softcap, dtype):
+                                                      window, softcap,
+                                                      bf16_kind, dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     from repro_torch.kernels.flash_attention import flash_attention as F
@@ -123,14 +132,52 @@ def test_flash_attention_kernel_matches_plain_version(hd, g, sq, skv, causal,
     k = _cuda(rng, (2, 2, skv, hd), dtype)
     v = _cuda(rng, (2, 2, skv, hd), dtype)
     kw = dict(causal=causal, window=window, softcap=softcap)
-    before = F.LAUNCHES["flash_attention"]
+    kind = bf16_kind if dtype == "bfloat16" else "fma"
+    assert F.variant(q.dtype, hd, g, [t.data_ptr() % 16 for t in
+                                      (q, k, v)]) == kind
+    before = dict(F.LAUNCHES)
     got = F.flash_attention_cuda(q, k, v, **kw)
     torch.cuda.synchronize()
     assert got.dtype == q.dtype and got.shape == q.shape
     torch.testing.assert_close(got.float(),
                                attention_ref(q, k, v, **kw).float(),
                                **_tol(dtype))
-    assert F.LAUNCHES["flash_attention"] == before + 1
+    assert F.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert F.LAUNCHES[f"flash_attention_{kind}"] == \
+        before[f"flash_attention_{kind}"] + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("operand", ["q", "k", "v"])
+def test_flash_attention_unaligned_operand_takes_the_fma_kernel(operand):
+    """A bf16 operand 2 bytes off a 16-byte boundary cannot be a TMA source:
+    the call takes the FMA kernel and stays right; the tensor-core entry
+    point refuses it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.kernels.flash_attention import flash_attention as F
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    rng = np.random.default_rng(5)
+    shapes = {"q": (2, 4, 200, 64), "k": (2, 2, 200, 64), "v": (2, 2, 200, 64)}
+    ops = {}
+    for name, shape in shapes.items():
+        off = 1 if name == operand else 0
+        flat = _cuda(rng, (int(np.prod(shape)) + off,), "bfloat16")
+        ops[name] = flat[off:].view(shape)
+    q, k, v = ops["q"], ops["k"], ops["v"]
+    assert ops[operand].data_ptr() % 16 == 2
+    before = dict(F.LAUNCHES)
+    got = F.flash_attention_cuda(q, k, v, window=70)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(),
+                               attention_ref(q, k, v, window=70).float(),
+                               **_tol("bfloat16"))
+    assert F.LAUNCHES["flash_attention_fma"] == \
+        before["flash_attention_fma"] + 1
+    assert F.LAUNCHES["flash_attention_wgmma"] == \
+        before["flash_attention_wgmma"]
+    with pytest.raises(ValueError, match="tensor-core kernel"):
+        F.flash_attention_wgmma(q, k, v)
 
 
 def _decode_lengths(s):

@@ -28,7 +28,8 @@ from repro.models import moe as RM
 from repro_torch.configs import get as tget
 from repro_torch.kernels.flash_attention import flash_attention as FA
 from repro_torch.kernels.flash_attention import ops as fa_ops
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_bf16p_ref,
+                                                     attention_ref)
 from repro_torch.kernels.flash_decode import flash_decode as FD
 from repro_torch.kernels.flash_decode import ops as fd_ops
 from repro_torch.kernels.flash_decode.ref import (flash_decode_ref,
@@ -58,11 +59,10 @@ def _close(got, want, dtype):
 
 @pytest.fixture(autouse=True)
 def no_launches():
-    before = (FA.LAUNCHES["flash_attention"], FD.LAUNCHES["flash_decode"],
+    before = (dict(FA.LAUNCHES), FD.LAUNCHES["flash_decode"],
               dict(GM.LAUNCHES))
     yield
-    assert (FA.LAUNCHES["flash_attention"], FD.LAUNCHES["flash_decode"],
-            GM.LAUNCHES) == before
+    assert (FA.LAUNCHES, FD.LAUNCHES["flash_decode"], GM.LAUNCHES) == before
 
 
 # --------------------------------------------------------------------------
@@ -100,6 +100,75 @@ def test_attention_any_length_matches_oracle(sq, skv, window):
     vj, vt = _pair(rng.normal(size=(2, 2, skv, 16)), "float32")
     got = fa_ops.flash_attention(qt, kt, vt, window=window, scale=0.3)
     _close(got, r_attention(qj, kj, vj, window=window, scale=0.3), "float32")
+
+
+# the bf16 kernel check chip_smoke.py applies: max|kernel - plain| <= this
+# times max|plain| (LM_BF16_TOL there)
+BF16_KERNEL_TOL = 8e-3
+
+
+@pytest.mark.parametrize("g,sq,skv,causal,window,softcap", [
+    (2, 256, 256, True, None, None),       # the LM prefill's class (G 2)
+    (2, 256, 256, True, 48, None),         # window narrower than a kv tile
+    (1, 256, 256, True, None, 30.0),
+    (4, 256, 256, False, 64, 20.0),
+    (2, 128, 256, True, None, None)])      # Sq != Skv
+def test_bf16_rounding_model_within_kernel_tolerance(g, sq, skv, causal,
+                                                     window, softcap):
+    """The tensor-core kernel's roundings (`attention_bf16p_ref`: P rounded
+    to bf16 before PV) stay within chip_smoke.py's bf16 check of the
+    reference's oracle and its Pallas kernel (interpret mode), at the
+    kernel's head_dim 64: the tolerance holds before the card sees it."""
+    rng = np.random.default_rng(g + sq + (window or 0))
+    b, hkv, d = 1, 2, 64
+    qj, qt = _pair(rng.normal(size=(b, hkv * g, sq, d)), "bfloat16")
+    kj, kt = _pair(rng.normal(size=(b, hkv, skv, d)), "bfloat16")
+    vj, vt = _pair(rng.normal(size=(b, hkv, skv, d)), "bfloat16")
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got = attention_bf16p_ref(qt, kt, vt, **kw)
+    assert got.dtype == torch.bfloat16 and got.shape == qt.shape
+    wants = [r_attention(qj, kj, vj, **kw)]
+    if sq == skv:
+        wants.append(flash_attention_pallas(qj, kj, vj, block_q=128,
+                                            block_k=128, interpret=True, **kw))
+    for want in wants:
+        want = np.asarray(want, np.float32)
+        err = np.abs(got.float().numpy() - want).max()
+        assert err <= BF16_KERNEL_TOL * np.abs(want).max(), err
+    # the rounding of P shows: the model is not the f32-weight oracle
+    assert not torch.equal(got, attention_ref(qt, kt, vt, **kw))
+
+
+@pytest.mark.parametrize("dtype,hd,g,ptrs,kind", [
+    ("bfloat16", 64, 2, (0, 0, 0), "wgmma"),    # the LM prefill
+    ("bfloat16", 128, 1, (0, 0, 0), "wgmma"),
+    ("bfloat16", 192, 4, (0, 0, 0), "wgmma"),
+    ("bfloat16", 256, 16, (0, 0, 0), "wgmma"),
+    ("float32", 64, 2, (0, 0, 0), "fma"),       # float32 stays exact
+    ("bfloat16", 32, 2, (0, 0, 0), "fma"),      # below a 128-byte row
+    ("bfloat16", 96, 2, (0, 0, 0), "fma"),      # not whole 128-byte rows
+    ("bfloat16", 320, 2, (0, 0, 0), "fma"),     # above 256
+    ("bfloat16", 64, 3, (0, 0, 0), "fma"),      # G not a power of two
+    ("bfloat16", 64, 32, (0, 0, 0), "fma"),     # G above 16
+    ("bfloat16", 64, 2, (0, 2, 0), "fma"),      # k 2 bytes off 16
+    ("bfloat16", 64, 2, (8, 0, 0), "fma")])     # q 8 bytes off 16
+def test_flash_attention_variant_is_chosen_by_dtype_shape_alignment(
+        dtype, hd, g, ptrs, kind):
+    assert FA.variant(getattr(torch, dtype), hd, g, ptrs) == kind
+
+
+@pytest.mark.parametrize("entry", ["flash_attention_cuda",
+                                   "flash_attention_wgmma",
+                                   "flash_attention_fma"])
+def test_flash_attention_cpu_tensors_take_the_plain_version(entry):
+    rng = np.random.default_rng(4)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+               .to(torch.bfloat16) for shape in ((1, 4, 70, 64),
+                                                 (1, 2, 70, 64),
+                                                 (1, 2, 70, 64)))
+    got = getattr(FA, entry)(q, k, v, window=20)
+    torch.testing.assert_close(got, attention_ref(q, k, v, window=20),
+                               rtol=0, atol=0)
 
 
 # --------------------------------------------------------------------------
