@@ -13,22 +13,38 @@ Phases (any failure exits non-zero; none catches its own):
      `flash_attention_wgmma_kernel` instance the prefill takes (head_dim
      64), and a 128-bit global load (LDG.E.128 or LDGSTS.128) in the
      `flash_decode_kernel` instance that the decode step's shapes take;
-     those two instances' registers and spills (ptxas -v) are printed.
+     those two instances' registers and spills (ptxas -v) are printed; and
+     `HMMA ... TF32` in every `spconv_fod_tc_kernel` instance (column tile,
+     fused or not) that the MinkUNet path takes, with its registers and
+     spills.
   3. kernels: one full-width MinkUNet forward (plain torch flow "fod") on a
      50k-point city scene in the 65536 bucket records the inputs of all 41
-     sparse convs.  Each kernel is held against its plain PyTorch version
-     on those inputs (atol = rtol = 1e-4: float32 sums in another order)
-     and timed with CUDA events beside the plain version, a GEMM-only
-     yardstick (an einsum over pre-gathered rows; not used by the port)
-     and its bound: the larger of (bytes / memory rate) and (FLOPs /
-     float32 non-tensor peak), counting only this run's non-empty inverse
-     entries (2 * nnz * Cin * Cout FLOPs) and the feature rows they
-     reference.
+     sparse convs.  Every site must plan the tensor-core kernel
+     (`spconv.plan_for`; printed as the CTAs that ran a pipeline stage, of
+     the CTAs launched, and the most rounds of a cluster, both counted by
+     the kernel itself in one extra call with `stats=`).  The
+     kernels (tensor-core, and the earlier FMA kernel) are held against
+     their plain PyTorch versions on those inputs (atol = rtol = 1e-4:
+     float32 sums in another order; the error is printed as a fraction of
+     max|plain|) and timed as device time a call (CUDA graph) beside the
+     plain version and a GEMM-only yardstick (an einsum over pre-gathered
+     rows; not used by the port), both with CUDA events, and two bounds:
+     the larger of (bytes / memory rate) and either FLOPs / float32
+     non-tensor peak or 3 x FLOPs / dense TF32 peak (the tensor-core
+     route's), counting only this run's non-empty inverse entries (2 * nnz
+     * Cin * Cout FLOPs) and the feature rows they reference.  Per stride
+     level: ms, share, the FMA kernel's ms and the row use at 64-row and
+     16-row skips.  Negative control: the fused kernel on `inv` with the
+     offsets of the plan's last cluster rank set to -1 must fail the site
+     check at every site where those offsets hold an input (the offsets
+     k = n_split - 1 (mod n_split), which the cluster's last rank takes
+     when it spreads a tile over the whole cluster).
   4. main path: `PointCloudEngine(flow="cuda_fused").segment` serves five
      requests (scene A, scene B, A, B, A: two misses, then mapping-cache
      hits), then one `flow="cuda"` request runs the baseline kernel.  The
      launch counts are zeroed just before and read just after; the fused
-     kernel must launch 41 times per request.  Labels are checked against
+     kernel must launch 41 times per request and the baseline 41 times,
+     all on the tensor-core variant.  Labels are checked against
      the "fod" logits on valid rows: a mismatch is allowed only where the
      top-2 logit gap is below the tolerance.
   5. point kernels: one plain full-width PointNet++(s) forward (13
@@ -113,7 +129,8 @@ Phases (any failure exits non-zero; none catches its own):
   11. a {"kernels": [...]} line (six kernels), the nvidia-smi line, and
      last the {"ok": true, "device": {...}} line.
 
-`--profile` adds torch.profiler tables of one segment request, of one
+`--profile` adds torch.profiler tables of one segment hit and one miss
+(each with its wall, device time, busy share and spconv kernel time), of one
 PointNet++(s) forward (split into FPS, ball query, kNN, gathers and
 fused-MLP groups, with the forward's device time and that of the
 `fused_mlp_kernel` rows), of one LM prefill and of four LM decode steps
@@ -155,6 +172,7 @@ PEAKS = {  # (bytes/s, float32 non-tensor FLOP/s), NVIDIA data sheets
     "pcie": (2.0e12, 51e12),
 }
 BF16_PEAKS = {"sxm": 989e12, "pcie": 756e12}  # dense bf16 tensor FLOP/s
+TF32_PEAKS = {"sxm": 494.7e12, "pcie": 378e12}  # dense TF32 tensor FLOP/s
 LM_ARCH = "granite-moe-1b-a400m"
 LM_BATCH, LM_PROMPT, LM_NEW, LM_MAX_LEN = 8, 512, 32, 1024
 LM_PLAIN_STEPS = 8           # decode steps of the kernel phase's plain run
@@ -381,6 +399,63 @@ def site_names(tree) -> list[str]:
             for b in range(len(st["blocks"])):
                 names += [f"{side}{i}.b{b}.conv1", f"{side}{i}.b{b}.conv2"]
     return names
+
+
+def record_sites(module, scene):
+    """One plain ("fod") full-width MinkUNet forward of `scene` (coords,
+    mask, feats) in its bucket, recording each conv's kernel operands:
+    ([{"features", "inv", "weights", "epi"}, ...] in forward order, the
+    logits of the scene's rows)."""
+    import torch
+    from repro_torch.api import PointAccSession
+    from repro_torch.kernels.spconv import ops
+    from repro_torch.models import minkunet as MU
+    from repro_torch.serve.buckets import pad_scene
+    from repro_torch.serve.engine import PointCloudEngine
+    sites = []
+
+    class Recording(PointAccSession):
+        def _apply_conv(self, x, maps, out_pc, weights, epilogue, new_stride):
+            epi = epilogue._replace(
+                mask=epilogue.mask.float().contiguous(),
+                residual=None if epilogue.residual is None
+                else epilogue.residual.contiguous())
+            sites.append({"features": x.feats.contiguous(),
+                          "inv": ops.invert_maps(maps, out_pc.capacity),
+                          "weights": weights.contiguous(), "epi": epi})
+            return super()._apply_conv(x, maps, out_pc, weights, epilogue,
+                                       new_stride)
+
+    probe = PointCloudEngine(module, N_STAGES, flow="fod")
+    coords, mask, feats = scene
+    levels, _ = probe.levels_for(coords, mask)
+    session = Recording(flow="fod")
+    bucket = probe.ladder.bucket_for(coords.shape[0])
+    c, m, f = pad_scene(coords, mask, feats, bucket)
+    dev = probe.device
+    x = session.tensor(torch.from_numpy(c).to(dev), torch.from_numpy(m).to(dev),
+                       torch.from_numpy(f).to(dev),
+                       context=MU._context_from_levels(levels))
+    logits = MU.minkunet_forward(session, probe.module.tree(), x)
+    return sites, logits[:coords.shape[0]]
+
+
+def conv_couts(tree) -> set[int]:
+    """Cout of every sparse-conv weight (K, Cin, Cout) in a model tree."""
+    if isinstance(tree, dict):
+        return set().union(*(conv_couts(v) for v in tree.values()))
+    if isinstance(tree, (list, tuple)):
+        return set().union(*(conv_couts(v) for v in tree))
+    return {int(tree.shape[2])} if getattr(tree, "dim", lambda: 0)() == 3 \
+        else set()
+
+
+def level_of(site: str) -> int:
+    """Stride level (0 = full resolution) of a conv site's output."""
+    if site == "stem":
+        return 0
+    i = int(site[3])
+    return i + 1 if site.startswith("enc") else N_STAGES - 1 - i
 
 
 def point_phases(dev, mem_rate: float, flop_rate: float,
@@ -1440,13 +1515,11 @@ def main(argv) -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.api import PointAccSession
     from repro_torch.data.synthetic import city_scene
     from repro_torch.kernels import build
-    from repro_torch.kernels.spconv import ops, ref
+    from repro_torch.kernels.spconv import ref
     from repro_torch.kernels.spconv import spconv as K
     from repro_torch.models import minkunet as MU
-    from repro_torch.serve.buckets import pad_scene
     from repro_torch.serve.engine import PointCloudEngine
 
     # 1. device
@@ -1532,123 +1605,213 @@ def main(argv) -> int:
         raise AssertionError(f"no HGMMA in {fa_name}'s SASS")
     print(f"SASS: {fa_name} holds {len(hgmma)} HGMMA instructions, e.g. "
           f"{hgmma[0].split(';')[0]}")
-
-    scenes = {key: city_scene(*key) for key in (SCENE_A, SCENE_B)}
+    # the sparse conv runs on the tensor cores in TF32: HMMA ... TF32 in each
+    # instance (column tile width, fused or not) that the MinkUNet path takes
     module = MU.minkunet_init(torch.Generator().manual_seed(0))
     tree = module.tree()
+    sp_regs = ptxas_kernels(build.build_log.get("spconv_tc", ""))
+    for cn in sorted({K.pick_cn(c) for c in conv_couts(tree)}):
+        for fused in (1, 0):
+            sp_name = f"spconv_fod_tc_kernelILi{cn}ELb{fused}E"
+            regs = [v for k, v in sp_regs.items() if sp_name in k]
+            if len(regs) != 1:
+                raise AssertionError(f"ptxas reports {len(regs)} kernels "
+                                     f"named {sp_name}")
+            hmma = [ln for ln in sass_lines(libs["spconv_tc"], sp_name,
+                                            "HMMA") if "TF32" in ln]
+            if not hmma:
+                raise AssertionError(f"no HMMA TF32 in {sp_name}'s SASS")
+            print(f"SASS: {sp_name} holds {len(hmma)} HMMA TF32 "
+                  f"instructions, e.g. {hmma[0].split(';')[0]}; ptxas: "
+                  f"{regs[0][0]} registers, spill stores/loads {regs[0][1]}/"
+                  f"{regs[0][2]} bytes")
+
+    scenes = {key: city_scene(*key) for key in (SCENE_A, SCENE_B)}
 
     # 3. kernels, on the inputs of every conv of one forward
-    sites = []
-
-    class Recording(PointAccSession):
-        def _apply_conv(self, x, maps, out_pc, weights, epilogue, new_stride):
-            epi = epilogue._replace(
-                mask=epilogue.mask.float().contiguous(),
-                residual=None if epilogue.residual is None
-                else epilogue.residual.contiguous())
-            sites.append({"features": x.feats.contiguous(),
-                          "inv": ops.invert_maps(maps, out_pc.capacity),
-                          "weights": weights.contiguous(), "epi": epi})
-            return super()._apply_conv(x, maps, out_pc, weights, epilogue,
-                                       new_stride)
-
-    probe = PointCloudEngine(module, N_STAGES, flow="fod")
-    coords, mask, feats = scenes[SCENE_A]
-    levels, _ = probe.levels_for(coords, mask)
-    session = Recording(flow="fod")
-    bucket = probe.ladder.bucket_for(coords.shape[0])
-    c, m, f = pad_scene(coords, mask, feats, bucket)
-    dev = probe.device
-    x = session.tensor(torch.from_numpy(c).to(dev), torch.from_numpy(m).to(dev),
-                       torch.from_numpy(f).to(dev),
-                       context=MU._context_from_levels(levels))
-    fod_logits = MU.minkunet_forward(session, probe.module.tree(), x)
-    fod_logits = fod_logits[:coords.shape[0]]
+    sites, fod_logits = record_sites(module, scenes[SCENE_A])
+    dev = fod_logits.device
     names = site_names(tree)
     if not len(sites) == len(names) == 41:
         raise AssertionError(f"{len(sites)} conv sites recorded, "
                              f"{len(names)} named; expected 41")
 
+    tf32_rate = TF32_PEAKS["pcie" if "PCIe" in name else "sxm"]
     print(f"kernel phase: {len(sites)} conv sites of one forward, tol "
-          f"atol=rtol={TOL:g}; times in ms (CUDA events, mean of {REPS})")
-    print(f"{'site':14s} {'K':>2s} {'Cin':>4s} {'Cout':>4s} {'M':>6s} "
-          f"{'nnz':>7s} {'err_fused':>9s} {'err_base':>9s} {'fused':>7s} "
-          f"{'base':>7s} {'plain_f':>7s} {'plain_b':>7s} {'gemm':>7s} "
-          f"{'bound':>7s} {'row_use':>7s}")
-    totals = {"fused": 0.0, "base": 0.0, "plain_f": 0.0, "plain_b": 0.0,
-              "gemm": 0.0, "bound_f": 0.0, "bound_b": 0.0, "bound_ops": 0.0,
-              "bytes_f": 0.0, "bytes_b": 0.0, "err_f": 0.0, "err_b": 0.0,
-              "flops": 0.0, "dense_flops": 0.0}
+          f"atol=rtol={TOL:g}; kernel times in ms as device time a call "
+          f"({REPS} calls in one CUDA graph), plain and gemm-only with CUDA "
+          f"events (mean of {REPS}); 'earlier' = the FMA kernel "
+          f"(csrc/spconv.cu); errors as a fraction of max|plain|; bounds: "
+          f"float32 FMAs at {flop_rate / 1e12:g} TFLOP/s and split-float TF32 "
+          f"at 3 x FLOPs / {tf32_rate / 1e12:g} TFLOP/s, each against the "
+          f"bytes at {mem_rate / 1e12:g} TB/s; row use = real rows / rows "
+          f"computed at 64-row and at {K.SKIP_ROWS}-row skips; plan = variant"
+          f"/n_split, then ran/CTAxR = CTAs that ran a pipeline stage / CTAs launched x the most rounds "
+          f"of a cluster, counted by the kernel (one extra call with stats=)")
+    print(f"{'site':14s} {'L':>1s} {'K':>2s} {'Cin':>4s} {'Cout':>4s} "
+          f"{'M':>6s} {'nnz':>7s} {'plan: ran/CTAxR':>16s} {'err_f':>8s} {'err_b':>8s} "
+          f"{'fused':>7s} {'base':>7s} {'earlier':>7s} {'plain_f':>7s} "
+          f"{'gemm':>7s} {'b_f32':>7s} {'b_tc':>7s} {'ru64':>5s} "
+          f"{'ru16':>5s} {'neg_err':>8s}")
+    keys = ("fused", "base", "earlier_f", "earlier_b", "plain_f", "plain_b",
+            "gemm", "bound_f", "bound_b", "bound_ops", "bound_tc_f",
+            "bound_tc_b", "tc_ops", "bytes_f", "bytes_b", "flops",
+            "dense_flops", "tc_flops", "nnz", "live64", "live16")
+    totals = dict.fromkeys(keys, 0.0)
+    totals.update(err_f=0.0, err_b=0.0, rel_f=0.0, rel_b=0.0)
+    by_level: dict[int, dict] = {}
+    controls = 0
     for nm, s in zip(names, sites):
         fe, inv, w, epi = s["features"], s["inv"], s["weights"], s["epi"]
         k, mrows = inv.shape
         cin, cout = w.shape[1], w.shape[2]
+        plan_f = K.plan_for(fe, inv, w, fused=True)
+        plan_b = K.plan_for(fe, inv, w, fused=False)
+        if plan_f.variant != "tc" or plan_b.variant != "tc":
+            raise AssertionError(f"{nm} takes {plan_f} / {plan_b}, not the "
+                                 "tensor-core kernel")
         out_f = K.spconv_fod_fused_cuda(fe, inv, w, epi)
         ref_f = ref.spconv_fod_fused_ref(fe, inv, w, epi)
         out_b = K.spconv_fod_cuda(fe, inv, w)
         ref_b = ref.spconv_fod_ref(fe, inv, w)
+        old_f = K.spconv_fod_kernel(fe, inv, w, epi, kind="fma", fused=True)
+        old_b = K.spconv_fod_kernel(fe, inv, w, kind="fma", fused=False)
         torch.cuda.synchronize()
-        for out, want, what in ((out_f, ref_f, "fused"), (out_b, ref_b,
-                                                          "baseline")):
+        for out, want, what in ((out_f, ref_f, "fused"),
+                                (out_b, ref_b, "baseline"),
+                                (old_f, ref_f, "fused FMA"),
+                                (old_b, ref_b, "baseline FMA")):
             if not torch.allclose(out, want, atol=TOL, rtol=TOL):
                 raise AssertionError(
                     f"{what} kernel disagrees with its plain version at {nm}"
                     f": max abs err {float((out - want).abs().max())}")
         err_f = float((out_f - ref_f).abs().max())
         err_b = float((out_b - ref_b).abs().max())
+        rel_f = err_f / max(float(ref_f.abs().max()), 1e-30)
+        rel_b = err_b / max(float(ref_b.abs().max()), 1e-30)
+        del old_f, old_b
+        # the kernel's own counts of the work it spread (one extra call)
+        counts = torch.zeros(len(K.STATS), dtype=torch.int32, device=dev)
+        K.spconv_fod_kernel(fe, inv, w, epi, kind="tc", fused=True,
+                            stats=counts)
+        counts = dict(zip(K.STATS, counts.tolist()))
+        # negative control: the plan's last rank without its offsets must
+        # fail the same check wherever those offsets hold an input
+        last = list(range(plan_f.n_split - 1, k, plan_f.n_split))
+        neg_err = float("nan")
+        if bool((inv[last] >= 0).any()):
+            inv_neg = inv.clone()
+            inv_neg[last] = -1
+            neg = K.spconv_fod_fused_cuda(fe, inv_neg, w, epi)
+            torch.cuda.synchronize()
+            if torch.allclose(neg, ref_f, atol=TOL, rtol=TOL):
+                raise AssertionError(f"negative control accepted at {nm}: "
+                                     f"the last rank's offsets {last} "
+                                     "dropped")
+            neg_err = float((neg - ref_f).abs().max())
+            controls += 1
+            del neg, inv_neg
         valid = inv >= 0
         nnz = int(valid.sum())
         rows_read = int(torch.unique(inv[valid]).numel())
         flops = 2.0 * nnz * cin * cout
-        # rows the kernel computes: every row of each (tile, offset) slice
-        # that holds at least one input
+        # rows computed: every row of each (tile, offset) slice that holds
+        # an input, at the CTA's 64 rows and at a warp's 16
         tiles = -(-mrows // K.ROWS_PER_CTA)
         padded = torch.full((k, tiles * K.ROWS_PER_CTA), -1,
                             dtype=inv.dtype, device=inv.device)
         padded[:, :mrows] = inv
-        live = int((padded.view(k, tiles, -1) >= 0).any(-1).sum())
-        row_use = nnz / max(1, live * K.ROWS_PER_CTA)
+        live64 = int((padded.view(k, tiles, -1) >= 0).any(-1).sum())
+        live_tiles = int((padded.view(k, tiles, -1) >= 0).any(-1).any(0)
+                         .sum())
+        live16 = int((padded.view(k, -1, K.SKIP_ROWS) >= 0).any(-1).sum())
         nbytes = 4 * (rows_read * cin + k * mrows + k * cin * cout
                       + mrows * cout)
         fused_bytes = nbytes + 4 * (2 * cout + mrows) \
             + (4 * mrows * cout if epi.residual is not None else 0)
         b_ops = flops / flop_rate * 1e3
+        b_tc = 3 * flops / tf32_rate * 1e3
         b_bytes_f, b_bytes_b = (fused_bytes / mem_rate * 1e3,
                                 nbytes / mem_rate * 1e3)
         gathered = fe[inv.clamp(min=0).long()] * valid[..., None]
-        t = {"fused": cuda_ms(lambda: K.spconv_fod_fused_cuda(fe, inv, w, epi),
-                              REPS),
-             "base": cuda_ms(lambda: K.spconv_fod_cuda(fe, inv, w), REPS),
+        t = {"fused": graph_ms(lambda: K.spconv_fod_fused_cuda(fe, inv, w, epi),
+                               REPS),
+             "base": graph_ms(lambda: K.spconv_fod_cuda(fe, inv, w), REPS),
+             "earlier_f": graph_ms(lambda: K.spconv_fod_kernel(
+                 fe, inv, w, epi, kind="fma", fused=True), REPS),
+             "earlier_b": graph_ms(lambda: K.spconv_fod_kernel(
+                 fe, inv, w, kind="fma", fused=False), REPS),
              "plain_f": cuda_ms(
                  lambda: ref.spconv_fod_fused_ref(fe, inv, w, epi), REPS),
              "plain_b": cuda_ms(lambda: ref.spconv_fod_ref(fe, inv, w), REPS),
              "gemm": cuda_ms(
                  lambda: torch.einsum("kmc,kcd->md", gathered, w), REPS)}
         del gathered
-        bound = max(b_ops, b_bytes_f)
-        for key in t:
-            totals[key] += t[key]
-        totals["bound_f"] += bound
-        totals["bound_b"] += max(b_ops, b_bytes_b)
-        totals["bound_ops"] += b_ops
-        totals["bytes_f"] += b_bytes_f
-        totals["bytes_b"] += b_bytes_b
-        totals["flops"] += flops
-        totals["dense_flops"] += 2.0 * live * K.ROWS_PER_CTA * cin * cout
-        totals["err_f"] = max(totals["err_f"], err_f)
-        totals["err_b"] = max(totals["err_b"], err_b)
-        print(f"{nm:14s} {k:2d} {cin:4d} {cout:4d} {mrows:6d} {nnz:7d} "
-              f"{err_f:9.2e} {err_b:9.2e} {t['fused']:7.3f} {t['base']:7.3f} "
-              f"{t['plain_f']:7.3f} {t['plain_b']:7.3f} {t['gemm']:7.3f} "
-              f"{bound:7.4f} {row_use:7.3f}  {NAMED.get(nm, '')}")
+        site = {**t, "bound_f": max(b_ops, b_bytes_f),
+                "bound_b": max(b_ops, b_bytes_b), "bound_ops": b_ops,
+                "bound_tc_f": max(b_tc, b_bytes_f),
+                "bound_tc_b": max(b_tc, b_bytes_b), "tc_ops": b_tc,
+                "bytes_f": b_bytes_f, "bytes_b": b_bytes_b, "flops": flops,
+                "dense_flops": 2.0 * live64 * K.ROWS_PER_CTA * cin * cout,
+                "tc_flops": 2.0 * live16 * K.SKIP_ROWS * (-(-cin // 8) * 8)
+                * cout, "nnz": nnz, "live64": live64, "live16": live16}
+        lvl = by_level.setdefault(level_of(nm), {**dict.fromkeys(keys, 0.0),
+                                                 "sites": 0, "plans": set()})
+        for key in keys:
+            totals[key] += site[key]
+            lvl[key] += site[key]
+        lvl["sites"] += 1
+        lvl["plans"].add(f"{mrows} rows, {live_tiles} live tiles: "
+                         f"{plan_f.ctas} CTAs in clusters of "
+                         f"{plan_f.n_split}; device counts: "
+                         f"{counts['busy_ctas']} CTAs ran stages, at most "
+                         f"{counts['max_stages']} stages a CTA, "
+                         f"{counts['max_rounds']} rounds")
+        for key, val in (("err_f", err_f), ("err_b", err_b), ("rel_f", rel_f),
+                         ("rel_b", rel_b)):
+            totals[key] = max(totals[key], val)
+        plan_txt = (f"{plan_f.variant}/{plan_f.n_split} "
+                    f"{counts['busy_ctas']}/{plan_f.ctas}x"
+                    f"{counts['max_rounds']}")
+        print(f"{nm:14s} {level_of(nm):1d} {k:2d} {cin:4d} {cout:4d} "
+              f"{mrows:6d} {nnz:7d} {plan_txt:>16s} {rel_f:8.1e} "
+              f"{rel_b:8.1e} {t['fused']:7.3f} {t['base']:7.3f} "
+              f"{t['earlier_f']:7.3f} {t['plain_f']:7.3f} {t['gemm']:7.3f} "
+              f"{site['bound_f']:7.4f} {site['bound_tc_f']:7.4f} "
+              f"{nnz / max(1, live64 * K.ROWS_PER_CTA):5.3f} "
+              f"{nnz / max(1, live16 * K.SKIP_ROWS):5.3f} {neg_err:8.2e}  "
+              f"{NAMED.get(nm, '')}")
+    if controls == 0:
+        raise AssertionError("the negative control found no live site")
+    print(f"negative control (the plan's last rank's offsets set to -1): "
+          f"rejected at all {controls} sites where they hold an input")
     print(f"{'total':14s} real GFLOP {totals['flops'] / 1e9:.2f}  computed "
-          f"GFLOP {totals['dense_flops'] / 1e9:.2f}  fused "
-          f"{totals['fused']:.3f} ms  base {totals['base']:.3f} ms  plain_f "
-          f"{totals['plain_f']:.3f} ms  plain_b {totals['plain_b']:.3f} ms  "
-          f"gemm-only {totals['gemm']:.3f} ms  bound fused "
-          f"{totals['bound_f']:.4f} ms, base {totals['bound_b']:.4f} ms "
-          f"(ops {totals['bound_ops']:.4f}, bytes fused "
-          f"{totals['bytes_f']:.4f}, base {totals['bytes_b']:.4f})")
+          f"GFLOP at 64-row skips {totals['dense_flops'] / 1e9:.2f}, by the "
+          f"tensor-core kernel (16-row skips, Cin to 8) "
+          f"{totals['tc_flops'] / 1e9:.2f}  fused {totals['fused']:.3f} ms  "
+          f"base {totals['base']:.3f} ms  earlier fused "
+          f"{totals['earlier_f']:.3f} ms, base {totals['earlier_b']:.3f} ms  "
+          f"plain_f {totals['plain_f']:.3f} ms  plain_b "
+          f"{totals['plain_b']:.3f} ms  gemm-only {totals['gemm']:.3f} ms")
+    print(f"{'bounds':14s} split-float TF32: fused {totals['bound_tc_f']:.4f}"
+          f" ms, base {totals['bound_tc_b']:.4f} ms (ops "
+          f"{totals['tc_ops']:.4f}); float32 FMAs: fused "
+          f"{totals['bound_f']:.4f} ms, base {totals['bound_b']:.4f} ms (ops "
+          f"{totals['bound_ops']:.4f}); bytes fused {totals['bytes_f']:.4f}, "
+          f"base {totals['bytes_b']:.4f}; max error fused {totals['err_f']:.2e}"
+          f" ({totals['rel_f']:.2e} of max|plain|), base "
+          f"{totals['err_b']:.2e} ({totals['rel_b']:.2e})")
+    print("per level: fused ms (share), earlier ms, base ms, bound ms "
+          "(TF32), row use at 64 / 16 rows, plans")
+    for lv in sorted(by_level):
+        d = by_level[lv]
+        print(f"  level {lv}: {d['sites']:2d} sites  fused {d['fused']:.3f} "
+              f"({d['fused'] / totals['fused']:.1%})  earlier "
+              f"{d['earlier_f']:.3f} ({d['earlier_f'] / totals['earlier_f']:.1%}"
+              f")  base {d['base']:.3f}  bound {d['bound_tc_f']:.4f}  row use "
+              f"{d['nnz'] / max(1, d['live64'] * K.ROWS_PER_CTA):.2f} / "
+              f"{d['nnz'] / max(1, d['live16'] * K.SKIP_ROWS):.2f}  "
+              f"{'; '.join(sorted(d['plans']))}")
 
     # 4. main path
     engine = PointCloudEngine(module, N_STAGES, flow="cuda_fused")
@@ -1682,10 +1845,13 @@ def main(argv) -> int:
     print(f"flow=cuda request: scene {SCENE_A} latency {base_ms:.2f} ms "
           f"(mapping miss in its own cache)")
     print(f"main-path launches: {launches}")
-    if launches["spconv_fod_fused"] != 41 * len(order):
-        raise AssertionError(f"fused launches {launches}")
-    if launches["spconv_fod"] != 41:
-        raise AssertionError(f"baseline launches {launches}")
+    if launches["spconv_fod_fused"] != 41 * len(order) or \
+            launches["spconv_fod_fused_tc"] != 41 * len(order):
+        raise AssertionError(f"fused launches {launches}: expected "
+                             f"{41 * len(order)}, all on the tensor cores")
+    if launches["spconv_fod"] != 41 or launches["spconv_fod_tc"] != 41:
+        raise AssertionError(f"baseline launches {launches}: expected 41, "
+                             "all on the tensor cores")
     hits = [hit for _, _, hit, _ in results]
     if hits != [False, False, True, True, True]:
         raise AssertionError(f"mapping-cache hits {hits}")
@@ -1730,35 +1896,68 @@ def main(argv) -> int:
     if "--profile" in argv:
         from torch.profiler import ProfilerActivity, profile
         coords, mask, feats = scenes[SCENE_A]
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            engine.segment(coords, mask, feats)
+        fresh = PointCloudEngine(module, N_STAGES, flow="cuda_fused")
+        for label, eng in (("hit", engine), ("miss", fresh)):
             torch.cuda.synchronize()
-        print(prof.key_averages().table(sort_by="cuda_time_total",
-                                        row_limit=15))
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                _, hit = eng.segment(coords, mask, feats)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            if hit != (label == "hit"):
+                raise AssertionError(f"profiled {label} came back hit={hit}")
+            print(prof.key_averages().table(sort_by="cuda_time_total",
+                                            row_limit=15))
+            evs = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)]
+            conv = [e for e in evs if "spconv_fod_tc_kernel" in e.name]
+
+            def span_ms(es):
+                return sum(e.time_range.end - e.time_range.start
+                           for e in es) / 1e3
+            print(f"segment {label} under the profiler: wall {wall:.2f} ms, "
+                  f"device events {span_ms(evs):.3f} ms over {len(evs)} "
+                  f"(busy {span_ms(evs) / wall:.3f}), spconv_fod_tc_kernel "
+                  f"{span_ms(conv):.3f} ms over {len(conv)} launches")
 
     # 8. result lines
-    src = "src/repro_torch/kernels/spconv/csrc/spconv.cu"
+    src = "src/repro_torch/kernels/spconv/csrc/spconv_tc.cu"
+    plans = {f"level {lv}": sorted(d["plans"]) for lv, d in
+             sorted(by_level.items())}
+    route = (f"split-float TF32 tensor cores: 3 x FLOPs / "
+             f"{tf32_rate / 1e12:g} TFLOP/s")
     kernels = [
         {"name": "spconv_fod_fused", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/spconv/spconv.py:190",
          "launches": launches["spconv_fod_fused"],
-         "max_abs_err": totals["err_f"], "ms": totals["fused"],
-         "kernel_ms": totals["fused"], "plain_ms": totals["plain_f"],
-         "bound_ms": totals["bound_f"],
-         "bound_by": "operations" if totals["bound_ops"]
-         >= totals["bytes_f"] else "bytes",
-         "library_ms": None, "gemm_only_ms": totals["gemm"],
+         "launches_by_variant": {v: launches[f"spconv_fod_fused_{v}"]
+                                 for v in K.VARIANTS},
+         "max_abs_err": totals["err_f"], "max_rel_err": totals["rel_f"],
+         "ms": totals["fused"], "kernel_ms": totals["fused"],
+         "earlier_ms": totals["earlier_f"],
+         "earlier": "float32 FMA kernel, csrc/spconv.cu",
+         "plain_ms": totals["plain_f"], "bound_ms": totals["bound_tc_f"],
+         "bound_by": "operations" if totals["tc_ops"]
+         >= totals["bytes_f"] else "bytes", "bound_route": route,
+         "bound_f32_ms": totals["bound_f"],
+         "library_ms": None, "gemm_only_ms": totals["gemm"], "plan": plans,
          "per": "one forward: sum over its 41 conv sites"},
         {"name": "spconv_fod", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/spconv/spconv.py:82",
          "launches": launches["spconv_fod"],
-         "max_abs_err": totals["err_b"], "ms": totals["base"],
-         "kernel_ms": totals["base"], "plain_ms": totals["plain_b"],
-         "bound_ms": totals["bound_b"],
-         "bound_by": "operations" if totals["bound_ops"]
-         >= totals["bytes_b"] else "bytes",
-         "library_ms": None, "gemm_only_ms": totals["gemm"],
+         "launches_by_variant": {v: launches[f"spconv_fod_{v}"]
+                                 for v in K.VARIANTS},
+         "max_abs_err": totals["err_b"], "max_rel_err": totals["rel_b"],
+         "ms": totals["base"], "kernel_ms": totals["base"],
+         "earlier_ms": totals["earlier_b"],
+         "earlier": "float32 FMA kernel, csrc/spconv.cu",
+         "plain_ms": totals["plain_b"], "bound_ms": totals["bound_tc_b"],
+         "bound_by": "operations" if totals["tc_ops"]
+         >= totals["bytes_b"] else "bytes", "bound_route": route,
+         "bound_f32_ms": totals["bound_b"],
+         "library_ms": None, "gemm_only_ms": totals["gemm"], "plan": plans,
          "per": "one forward: sum over its 41 conv sites"},
         {"name": "fused_mlp", "route": "cuda",
          "source": "src/repro_torch/kernels/fused_mlp/csrc/fused_mlp.cu",

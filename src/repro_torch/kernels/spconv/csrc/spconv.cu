@@ -39,7 +39,11 @@
 //     under the 48 KB static limit, so no dynamic shared memory attribute is
 //     needed.  Registers (64 accumulators a thread at Cout 256) limit occupancy.
 //   * float32 FMAs on the CUDA cores, no TF32: the reference accumulates in f32.
-//     Tensor cores (TF32 or split-float wgmma) are work for a later change.
+//
+// The main path runs spconv_tc.cu (split-float TF32 on the tensor cores); this kernel
+// keeps the shapes that one does not take (spconv.py `variant`: Cin or Cout not a
+// multiple of 4, operands not 16-byte aligned) and serves as the earlier kernel that
+// chip_smoke.py times beside it.
 
 #include <cuda_runtime.h>
 
@@ -78,7 +82,7 @@ __device__ __forceinline__ void mac(float (&acc)[kRowsPerWarp][NJ],
 // CN: columns per CTA (a power of two, 32..256); FUSED: apply the epilogue.
 template <int CN, bool FUSED>
 __global__ void __launch_bounds__(kThreads)
-spconv_fod_kernel(const float* __restrict__ feats, const int* __restrict__ inv,
+spconv_fod_fma_kernel(const float* __restrict__ feats, const int* __restrict__ inv,
                   const float* __restrict__ w, const float* __restrict__ bias,
                   const float* __restrict__ ln_scale, const float* __restrict__ ln_bias,
                   const float* __restrict__ residual, const float* __restrict__ mask,
@@ -202,22 +206,22 @@ int dispatch(dim3 grid, cudaStream_t st, const float* feats, const int* inv,
              float* out, int n, int cin, int kvol, int m, int cout, int relu) {
   switch (pick_cn(cout)) {
     case 32:
-      spconv_fod_kernel<32, FUSED><<<grid, kThreads, 0, st>>>(
+      spconv_fod_fma_kernel<32, FUSED><<<grid, kThreads, 0, st>>>(
           feats, inv, w, bias, ln_scale, ln_bias, residual, mask, out, n, cin, kvol, m,
           cout, relu);
       break;
     case 64:
-      spconv_fod_kernel<64, FUSED><<<grid, kThreads, 0, st>>>(
+      spconv_fod_fma_kernel<64, FUSED><<<grid, kThreads, 0, st>>>(
           feats, inv, w, bias, ln_scale, ln_bias, residual, mask, out, n, cin, kvol, m,
           cout, relu);
       break;
     case 128:
-      spconv_fod_kernel<128, FUSED><<<grid, kThreads, 0, st>>>(
+      spconv_fod_fma_kernel<128, FUSED><<<grid, kThreads, 0, st>>>(
           feats, inv, w, bias, ln_scale, ln_bias, residual, mask, out, n, cin, kvol, m,
           cout, relu);
       break;
     default:
-      spconv_fod_kernel<256, FUSED><<<grid, kThreads, 0, st>>>(
+      spconv_fod_fma_kernel<256, FUSED><<<grid, kThreads, 0, st>>>(
           feats, inv, w, bias, ln_scale, ln_bias, residual, mask, out, n, cin, kvol, m,
           cout, relu);
       break;

@@ -20,15 +20,10 @@ from repro_torch.kernels.spconv import spconv as K
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("cin,cout,k", [(5, 7, 27), (4, 32, 27),
-                                        (128, 96, 27), (256, 256, 8),
-                                        (300, 300, 27)])
-def test_cuda_kernels_match_plain_versions(cin, cout, k):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
-    rng = np.random.default_rng(cin + cout + k)
-    n, m = 700, 500
+def _spconv_problem(cin, cout, k, n=700, m=500, seed=None):
+    """Random inputs: 40 % of the entries -1, offset 3 all empty, rows 256
+    and up empty (whole empty row tiles); m = 500 is no multiple of 64."""
+    rng = np.random.default_rng(cin + cout + k if seed is None else seed)
     inv = rng.integers(-1, n, size=(k, m)).astype(np.int32)
     inv[rng.random((k, m)) < 0.4] = -1
     inv[3] = -1                               # one all-empty offset
@@ -39,27 +34,207 @@ def test_cuda_kernels_match_plain_versions(cin, cout, k):
 
     feats = dev(rng.normal(size=(n, cin)))
     w = dev(rng.normal(size=(k, cin, cout)) * 0.2)
-    inv_t = torch.from_numpy(inv).cuda()
+    epi = Epilogue(bias=dev(rng.normal(size=cout)),
+                   ln_scale=dev(rng.normal(size=cout)),
+                   ln_bias=dev(rng.normal(size=cout)), relu=True,
+                   mask=dev(rng.random(m) > 0.3),
+                   residual=dev(rng.normal(size=(m, cout))))
+    return feats, torch.from_numpy(inv).cuda(), w, epi
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cin,cout,k", [(5, 7, 27), (4, 32, 27),
+                                        (128, 96, 27), (256, 256, 8),
+                                        (300, 300, 27)])
+def test_cuda_kernels_match_plain_versions(cin, cout, k):
+    """The public wrappers, through the variant `variant` names (odd Cin or
+    Cout: the FMA kernel; whole 16-byte rows: the tensor-core kernel)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    feats, inv_t, w, epi = _spconv_problem(cin, cout, k)
+    kind = K.variant(cin, cout, k, fused=False)
+    assert kind == ("fma" if cin % 4 or cout % 4 else "tc")
     before = dict(K.LAUNCHES)
     got = K.spconv_fod_cuda(feats, inv_t, w)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, ref.spconv_fod_ref(feats, inv_t, w),
                                **TOL)
     assert K.LAUNCHES["spconv_fod"] == before["spconv_fod"] + 1
+    assert K.LAUNCHES[f"spconv_fod_{kind}"] == before[f"spconv_fod_{kind}"] + 1
     if cout > K.MAX_FUSED_COUT:
         with pytest.raises(ValueError, match="Cout <= 256"):
             K.spconv_fod_fused_cuda(feats, inv_t, w)
         return
-    epi = Epilogue(bias=dev(rng.normal(size=cout)),
-                   ln_scale=dev(rng.normal(size=cout)),
-                   ln_bias=dev(rng.normal(size=cout)), relu=True,
-                   mask=dev(rng.random(m) > 0.3),
-                   residual=dev(rng.normal(size=(m, cout))))
     got = K.spconv_fod_fused_cuda(feats, inv_t, w, epi)
     torch.cuda.synchronize()
     torch.testing.assert_close(
         got, ref.spconv_fod_fused_ref(feats, inv_t, w, epi), **TOL)
     assert K.LAUNCHES["spconv_fod_fused"] == before["spconv_fod_fused"] + 1
+    assert K.LAUNCHES[f"spconv_fod_fused_{kind}"] == \
+        before[f"spconv_fod_fused_{kind}"] + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cin", [4, 384])
+@pytest.mark.parametrize("cout", [32, 64, 96, 128, 256, 300])
+def test_tensor_core_spconv_matches_plain_versions_at_every_split(cin, cout):
+    """Every Cout instance (300: two Cout tiles, unfused only), the stem's
+    Cin 4 and the widest Cin, every forced n_split 1..8 and the planned one,
+    with an empty offset, empty row tiles and a ragged last tile."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    feats, inv_t, w, epi = _spconv_problem(cin, cout, 27)
+    want = ref.spconv_fod_ref(feats, inv_t, w)
+    want_f = (ref.spconv_fod_fused_ref(feats, inv_t, w, epi)
+              if cout <= K.MAX_FUSED_COUT else None)
+    for n_split in (None, *range(1, K.MAX_SPLIT + 1)):
+        before = dict(K.LAUNCHES)
+        got = K.spconv_fod_kernel(feats, inv_t, w, kind="tc", fused=False,
+                                  n_split=n_split)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **TOL,
+                                   msg=lambda e: f"n_split {n_split}: {e}")
+        assert K.LAUNCHES["spconv_fod_tc"] == before["spconv_fod_tc"] + 1
+        if want_f is None:
+            continue
+        got = K.spconv_fod_kernel(feats, inv_t, w, epi, kind="tc", fused=True,
+                                  n_split=n_split)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want_f, **TOL,
+                                   msg=lambda e: f"n_split {n_split}: {e}")
+        assert K.LAUNCHES["spconv_fod_fused_tc"] == \
+            before["spconv_fod_fused_tc"] + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("live_rows", [60000, 700])
+@pytest.mark.parametrize("n_split", [None, 1, 3, 8])
+def test_tensor_core_spconv_rounds_over_many_tiles(live_rows, n_split):
+    """More row tiles than clusters (938 tiles; 66 clusters of 8 on an
+    H100): clusters take several live tiles in rounds, alone or split as
+    the live tiles allow; with only the first 700 rows live (a padded
+    level) most tiles are written as epilogue(0) by the scan."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    m = 60000
+    feats, _, w, epi = _spconv_problem(32, 96, 27, n=30000, m=m, seed=7)
+    rng = np.random.default_rng(8)
+    inv = rng.integers(0, 30000, size=(27, m)).astype(np.int32)
+    inv[rng.random(inv.shape) < 0.6] = -1
+    inv[:, live_rows:] = -1
+    inv_t = torch.from_numpy(inv).cuda()
+    plan = K.plan_for(feats, inv_t, w, fused=True, n_split=n_split)
+    assert plan.variant == "tc" and plan.clusters < -(-m // 64)
+    for fused in (False, True):
+        got = K.spconv_fod_kernel(feats, inv_t, w, epi if fused else None,
+                                  kind="tc", fused=fused, n_split=n_split)
+        torch.cuda.synchronize()
+        want = (ref.spconv_fod_fused_ref(feats, inv_t, w, epi) if fused
+                else ref.spconv_fod_ref(feats, inv_t, w))
+        torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("live_tiles", [9, 33, 600])
+def test_tensor_core_spconv_device_counts_follow_the_round_rule(live_tiles):
+    """The kernel's own counts (`stats=`) on a padded level (M = 65536)
+    whose first `live_tiles` row tiles have every offset on every row:
+    cluster c holds live tiles c, c + G, ...; every rank of a cluster that
+    holds one runs stages (`round_groups`); each (tile, offset) runs its
+    one stage (Cin 32) on one rank; a cluster takes its tiles in
+    ceil(held / n_split) rounds (600 tiles: two)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    m, k, n = 65536, 27, 4000
+    rng = np.random.default_rng(9)
+    feats = torch.from_numpy(rng.normal(size=(n, 32)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(k, 32, 256)) * 0.2)
+                         .astype(np.float32))
+    inv = np.full((k, m), -1, np.int32)
+    rows = live_tiles * K.ROWS_PER_CTA
+    inv[:, :rows] = rng.integers(0, n, size=(k, rows))
+    feats, w, inv_t = feats.cuda(), w.cuda(), torch.from_numpy(inv).cuda()
+    plan = K.plan_for(feats, inv_t, w, fused=True)
+    assert plan.variant == "tc" and plan.n_split == 8
+    held = [len(range(c, live_tiles, plan.clusters))
+            for c in range(plan.clusters)]
+    counts = torch.zeros(len(K.STATS), dtype=torch.int32, device="cuda")
+    got = K.spconv_fod_kernel(feats, inv_t, w, kind="tc", fused=True,
+                              stats=counts)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        got, ref.spconv_fod_fused_ref(feats, inv_t, w, None), **TOL)
+    counts = dict(zip(K.STATS, counts.tolist()))
+    assert counts["busy_ctas"] == sum(
+        sum(s for _, s in K.round_groups(h, plan.n_split)) for h in held if h)
+    assert counts["stages"] == live_tiles * k
+    assert counts["max_rounds"] == max(-(-h // plan.n_split) for h in held)
+    assert counts["stages"] >= counts["max_stages"] >= -(-k // plan.n_split)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("operand", ["features", "weights", "residual"])
+def test_unaligned_spconv_operand_takes_the_fma_kernel(operand):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    feats, inv_t, w, epi = _spconv_problem(32, 64, 27)
+    t = {"features": feats, "weights": w, "residual": epi.residual}[operand]
+    shifted = torch.empty(t.numel() + 1, device="cuda")[1:].view(t.shape)
+    shifted.copy_(t)
+    if operand == "features":
+        feats = shifted
+    elif operand == "weights":
+        w = shifted
+    else:
+        epi = epi._replace(residual=shifted)
+    assert K.plan_for(feats, inv_t, w, fused=True,
+                      residual=epi.residual).variant == "fma"
+    before = dict(K.LAUNCHES)
+    got = K.spconv_fod_fused_cuda(feats, inv_t, w, epi)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        got, ref.spconv_fod_fused_ref(feats, inv_t, w, epi), **TOL)
+    assert K.LAUNCHES["spconv_fod_fused_fma"] == \
+        before["spconv_fod_fused_fma"] + 1
+    with pytest.raises(ValueError, match="variant 'fma'"):
+        K.spconv_fod_kernel(feats, inv_t, w, epi, kind="tc", fused=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused", [False, True])
+def test_spconv_kernel_replays_in_a_cuda_graph_with_new_maps(fused):
+    """The launch is planned from shapes only: a captured call replays with
+    inv changed on the device and matches the plain version at the new
+    maps (n_split 8, the level-4 plan, and the planned split)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    feats, inv_t, w, epi = _spconv_problem(256, 256, 27, n=600, m=534)
+    _, inv_b, _, _ = _spconv_problem(256, 256, 27, n=600, m=534, seed=5)
+    inv_b[:, -40:] = torch.arange(40, dtype=torch.int32, device="cuda")
+    for n_split in (None, 8):
+        def call():
+            if fused:
+                return K.spconv_fod_fused_cuda(feats, inv_t, w, epi,
+                                               n_split=n_split)
+            return K.spconv_fod_cuda(feats, inv_t, w, n_split=n_split)
+
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            call()                                 # warm-up: build, load
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = call()
+        saved = inv_t.clone()
+        for maps in (saved, inv_b):
+            inv_t.copy_(maps)
+            graph.replay()
+            torch.cuda.synchronize()
+            want = (ref.spconv_fod_fused_ref(feats, inv_t, w, epi) if fused
+                    else ref.spconv_fod_ref(feats, inv_t, w))
+            torch.testing.assert_close(out, want, **TOL)
+        inv_t.copy_(saved)
 
 
 @pytest.mark.gpu

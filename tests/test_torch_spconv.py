@@ -83,7 +83,7 @@ def test_plain_spconv_matches_reference_oracle_and_pallas(seed):
         TK.spconv_fod_fused_cuda(t["feats"], t["inv"], t["w"], epi_t).numpy(),
         got)
     TK.spconv_fod_cuda(t["feats"], t["inv"], t["w"])
-    assert TK.LAUNCHES == {"spconv_fod": 0, "spconv_fod_fused": 0}
+    assert not any(TK.LAUNCHES.values())
 
 
 @pytest.mark.parametrize("fields", ["all", "ln_only", "no_ln"])
