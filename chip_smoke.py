@@ -16,7 +16,9 @@ Phases (any failure exits non-zero; none catches its own):
      those two instances' registers and spills (ptxas -v) are printed; and
      `HMMA ... TF32` in every `spconv_fod_tc_kernel` instance (column tile,
      fused or not) that the MinkUNet path takes, with its registers and
-     spills.
+     spills, and in every `fused_mlp_tc_kernel` instance that a
+     PointNet++(s) group takes (`fused_mlp.plan_mlp` at PN_SEG_GROUPS);
+     registers and spills of every fused_mlp instance are printed.
   3. kernels: one full-width MinkUNet forward (plain torch flow "fod") on a
      50k-point city scene in the 65536 bucket records the inputs of all 41
      sparse convs.  Every site must plan the tensor-core kernel
@@ -54,28 +56,39 @@ Phases (any failure exits non-zero; none catches its own):
      fused-MLP group.  The point models' weights are the reference's init
      from `torch.Generator().manual_seed(seed)` scaled to He's gain, with
      biases uniform in +-0.1 (`smoke_weights`), so activations and logits
-     stay O(1).  The kernel is held against its plain version on each
-     group: max|kernel - plain| <= 1e-5 * max|plain| (float32 sums in
-     another order), with the rms and max of the plain output printed.  It
-     is timed beside the plain version and a layer-by-layer cuBLAS
-     yardstick (`torch.addmm` + `relu_`, TF32 off; not used by the port),
-     each as the device time of one call (20 calls captured in a CUDA
-     graph, replayed between CUDA events), and given its bound: the larger
-     of (x read + output written + weights and biases once) / memory rate
-     and 2 * rows * sum(Cin * Cout) / float32 peak.
+     stay O(1).  Each group's launch plan (`fused_mlp.plan_for`: variant
+     tc / tc_stream / few_rows / fma, rows a tile, grid, W split, shared
+     memory) is printed; the kernel it names and the FMA kernel
+     (`fused_mlp_kernel(kind="fma")`, the earlier design) are held against
+     the plain version on each group: max|kernel - plain| <= 1e-5 *
+     max|plain| (float32 sums in another order), with the rms and max of
+     the plain output printed.  Both are timed beside the plain version, a
+     layer-by-layer cuBLAS yardstick (`torch.addmm` + `relu_`, TF32 off;
+     not used by the port), each as the device time of one call (20
+     calls captured in a CUDA graph, replayed between CUDA events), and
+     given two bounds: the larger of (x read + output written + weights
+     and biases once) / memory rate and either 2 * rows * sum(Cin * Cout) /
+     float32 peak or 3 times that over the dense TF32 peak (the
+     tensor-core route's).
   6. point path: PointNet++(s) at full width on that batch, initialised
      on the card; one warm-up and three timed forwards (host clock around
      synchronised calls).  The launch count is zeroed just before and read
      just after: the kernel must launch once per planned group (6) each
-     forward.  Logits are held against the plain forward with the same
+     forward, none of them on the FMA variant.  Logits are held against the plain forward with the same
      relative rule, and labels on valid points must be equal except where
      the plain top-2 gap is below 1e-5 * max|plain logit|.  Negative
      controls: the same check must reject the forward with any one group
      written as zeros, and with the head's output off by a relative 1e-4.
   7. the other five models (PointNet, PointNet++(c) at n1 = 512, n2 = 128,
      PointNet++(ps), DGCNN at k = 20, F-PointNet++), width 1, B = 8 x 1024:
-     one forward each through the kernel (launches = planned groups) and
-     one plain, checked the same way (F-PointNet++'s centre and box too).
+     one forward each through the kernel (launches = planned groups, none
+     on the FMA variant) and one plain, checked the same way (F-PointNet++'s
+     centre and box too).  DGCNN takes kNN on features, so a forward through
+     the kernel takes the plain run's kNN graph (every `pointops.knn` call
+     recorded in the plain run and replayed), and each neighbour set that
+     its own kNN would choose otherwise must be a near tie (k-th and
+     (k+1)-th distances within KNN_TIE); the forward with its own graph is
+     printed, not checked.
   8. LM kernels: full-width granite-moe-1b-a400m (the repo's config:
      24 layers, d_model 1024, 16 / 8 heads of 64, 32 experts top-8, vocab
      49155) with random weights from torch.Generator("cuda").manual_seed(0)
@@ -133,7 +146,7 @@ Phases (any failure exits non-zero; none catches its own):
 (each with its wall, device time, busy share and spconv kernel time), of one
 PointNet++(s) forward (split into FPS, ball query, kNN, gathers and
 fused-MLP groups, with the forward's device time and that of the
-`fused_mlp_kernel` rows), of one LM prefill and of four LM decode steps
+fused_mlp kernels, every variant), of one LM prefill and of four LM decode steps
 (device busy share, and the time of each LM kernel).
 """
 
@@ -167,6 +180,12 @@ OTHER_LAST_VALID = 700
 MLP_REPS = 20              # calls captured in one CUDA graph (point kernels)
 GRAPH_REPLAYS = 5
 REL_TOL = 1e-5  # point path: max|got - want| <= REL_TOL * max|want|
+KNN_TIE = 1e-4  # a kNN set may differ from the plain run's only where the k-th
+                # and (k+1)-th distances lie within KNN_TIE of each other (relative)
+PN_SEG_GROUPS = (  # PointNet++(s) at PN_BATCH: (name, widths, rows) of its groups
+    ("sa1", (3, 32, 32, 64), 131072), ("sa2", (67, 64, 64, 128), 32768),
+    ("fp2.g0", (192, 128), 4096), ("fp2.g1", (128, 64), 4096),
+    ("fp1", (64, 64, 64), 65536), ("head", (64, 64, 13), 65536))
 PEAKS = {  # (bytes/s, float32 non-tensor FLOP/s), NVIDIA data sheets
     "sxm": (3.35e12, 67e12),
     "pcie": (2.0e12, 51e12),
@@ -339,6 +358,55 @@ def mlp_groups_through(fn):
         ops.fused_mlp = saved
 
 
+@contextlib.contextmanager
+def knn_through(fn):
+    """Run every `pointops.knn` call (ball query's too) through `fn`."""
+    from repro_torch.core import pointops
+    saved = pointops.knn
+    pointops.knn = fn
+    try:
+        yield
+    finally:
+        pointops.knn = saved
+
+
+def recording_knn(store):
+    """kNN that appends each call's (idx, sqdist) to `store`."""
+    from repro_torch.core import pointops
+    orig = pointops.knn
+
+    def fn(query, qmask, ref, rmask, k, chunk=1024):
+        out = orig(query, qmask, ref, rmask, k, chunk=chunk)
+        store.append(out)
+        return out
+    return fn
+
+
+def imposed_knn(store, roots):
+    """kNN that returns the recorded calls of `store` in order (the plain
+    run's graph), after taking its own on its inputs: for each call it
+    appends to `roots` (queries, queries whose neighbour set differs from
+    the recorded one, of those the ones whose own k-th and (k+1)-th
+    distances are not within KNN_TIE of each other)."""
+    import torch
+    from repro_torch.core import pointops
+    orig = pointops.knn
+    calls = iter(store)
+
+    def fn(query, qmask, ref, rmask, k, chunk=1024):
+        idx_rec, dist_rec = next(calls)
+        k1 = min(k + 1, ref.shape[1])
+        idx, dist = orig(query, qmask, ref, rmask, k1, chunk=chunk)
+        differ = (idx[..., :k].sort(dim=-1).values
+                  != idx_rec.sort(dim=-1).values).any(dim=-1)
+        tie = (dist[..., k] - dist[..., k - 1] <= KNN_TIE * dist[..., k]) \
+            if k1 > k else torch.zeros_like(differ)
+        roots.append((differ.numel(), int(differ.sum()),
+                      int((differ & ~tie).sum())))
+        return idx_rec, dist_rec
+    return fn
+
+
 def plain_groups(record=None):
     """The plain fused-MLP version as a group function; appends each
     group's operands to `record` when given."""
@@ -458,7 +526,7 @@ def level_of(site: str) -> int:
     return i + 1 if site.startswith("enc") else N_STAGES - 1 - i
 
 
-def point_phases(dev, mem_rate: float, flop_rate: float,
+def point_phases(dev, mem_rate: float, flop_rate: float, tf32_rate: float,
                  with_profile: bool):
     """Phases 5-7 (see the module docstring).  Returns the main-path
     fused-MLP launch counts and the kernel phase's PointNet++(s) totals."""
@@ -491,62 +559,92 @@ def point_phases(dev, mem_rate: float, flop_rate: float,
     oxyz, omask = cloud_batch(OTHER_BATCH, OTHER_LAST_VALID)
     pointnet = model("pointnet_init", 1, n_classes=40)
     with mlp_groups_through(plain_groups(pn_groups)):
-        pointnet_plain = pointnet(oxyz, omask)
+        pointnet(oxyz, omask)
 
     print(f"fused_mlp kernel phase: every group of one PointNet++(s) "
           f"forward {PN_BATCH[2]}x{PN_BATCH[3]} and one PointNet forward "
           f"{OTHER_BATCH[2]}x{OTHER_BATCH[3]}; rule max|kernel - plain| <= "
-          f"{REL_TOL:g} * max|plain|; ms = device time a call ({MLP_REPS} "
-          f"calls in one CUDA graph, {GRAPH_REPLAYS} replays, CUDA events)")
-    print(f"{'group':12s} {'rows':>7s} {'widths':24s} {'tile':>4s} "
-          f"{'split':>5s} {'smem':>6s} {'rms':>8s} {'max':>8s} "
-          f"{'err':>9s} {'kernel':>8s} {'plain':>8s} {'cublas':>8s} "
-          f"{'bound':>8s} {'by':>5s}")
-    mlp = {"ms": 0.0, "plain": 0.0, "cublas": 0.0, "bound": 0.0,
-           "bytes": 0.0, "ops": 0.0, "err": 0.0}
-    seg_names = ["sa1", "sa2", "fp2.g0", "fp2.g1", "fp1", "head"]
+          f"{REL_TOL:g} * max|plain| (the kernel and the FMA kernel); ms = "
+          f"device time a call ({MLP_REPS} calls in one CUDA graph, "
+          f"{GRAPH_REPLAYS} replays, CUDA events); kernel = the variant "
+          f"plan_mlp names (csrc/fused_mlp_tc.cu), fma = csrc/fused_mlp.cu "
+          f"forced; bounds: bytes at "
+          f"{mem_rate / 1e12:g} TB/s against FLOPs at {flop_rate / 1e12:g} "
+          f"TFLOP/s (f32) or 3 x FLOPs at {tf32_rate / 1e12:g} TFLOP/s "
+          f"(tf32x3)")
+    print(f"{'group':12s} {'rows':>7s} {'widths':24s} {'variant':9s} "
+          f"{'R':>3s} {'grid':>9s} {'smem':>6s} {'rms':>8s} "
+          f"{'max':>8s} {'err':>9s} {'err_fma':>9s} {'kernel':>8s} "
+          f"{'fma':>8s} {'plain':>8s} {'cublas':>8s} "
+          f"{'b_f32':>8s} {'b_tf32':>8s} {'by':>5s}")
+    mlp = {"ms": 0.0, "fma": 0.0, "plain": 0.0, "cublas": 0.0, "bound": 0.0,
+           "bound_f32": 0.0, "bytes": 0.0, "ops": 0.0, "tc_ops": 0.0,
+           "err": 0.0}
+    seg_names = [g[0] for g in PN_SEG_GROUPS]
+    got_groups = [(n, tuple([gx.shape[1]] + [w.shape[1] for w in ws]),
+                   gx.shape[0]) for n, (gx, ws, _, _) in zip(seg_names,
+                                                             seg_groups)]
+    if got_groups != list(PN_SEG_GROUPS):
+        raise AssertionError(f"PointNet++(s) groups {got_groups}, expected "
+                             f"{PN_SEG_GROUPS}")
     pn_names = [f"pointnet.{i}" for i in range(len(pn_groups))]
-    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    per_group = {}
     for gname, (gx, ws, bs, fa) in zip(seg_names + pn_names,
                                        seg_groups + pn_groups):
+        plan = FK.plan_for(gx, ws, bs)
         got = FK.fused_mlp_cuda(gx, ws, bs, fa)
         want = fused_mlp_ref(gx, ws, bs, fa)
         ok, err, scale = rel_close(got, want)
-        if not ok:
+        ok_fma, err_fma, _ = rel_close(
+            FK.fused_mlp_kernel(gx, ws, bs, fa, kind="fma"), want)
+        if not (ok and ok_fma):
             raise AssertionError(
                 f"fused_mlp kernel disagrees with its plain version at "
-                f"{gname}: max abs err {err} against max|plain| {scale}")
+                f"{gname}: max abs err {err} ({plan.variant}), {err_fma} "
+                f"(fma) against max|plain| {scale}")
         rows = gx.shape[0]
         widths = [gx.shape[1]] + [w.shape[1] for w in ws]
         nbytes = 4 * (rows * (widths[0] + widths[-1])
                       + sum(w.numel() + b.numel() for w, b in zip(ws, bs)))
         flops = 2.0 * rows * sum(a * b for a, b in zip(widths, widths[1:]))
-        b_bytes, b_ops = nbytes / mem_rate * 1e3, flops / flop_rate * 1e3
+        b_bytes = nbytes / mem_rate * 1e3
+        b_ops, b_tc = flops / flop_rate * 1e3, 3 * flops / tf32_rate * 1e3
         t = {"ms": graph_ms(lambda: FK.fused_mlp_cuda(gx, ws, bs, fa),
                             MLP_REPS),
+             "fma": graph_ms(lambda: FK.fused_mlp_kernel(gx, ws, bs, fa,
+                                                         kind="fma"),
+                             MLP_REPS),
              "plain": graph_ms(lambda: fused_mlp_ref(gx, ws, bs, fa),
                                MLP_REPS),
              "cublas": graph_ms(lambda: cublas_chain(gx, ws, bs, fa),
                                 MLP_REPS)}
-        bound = max(b_bytes, b_ops)
+        bound, bound_f32 = max(b_bytes, b_tc), max(b_bytes, b_ops)
+        per_group[gname] = {
+            "variant": plan.variant, "rows": rows, "widths": widths,
+            "plan": plan._asdict(), "err": err,
+            "bound_tf32x3": bound, "bound_f32": bound_f32, **t}
         if gname in seg_names:
-            for key in t:
+            for key in ("ms", "fma", "plain", "cublas"):
                 mlp[key] += t[key]
             mlp["bound"] += bound
+            mlp["bound_f32"] += bound_f32
             mlp["bytes"] += b_bytes
             mlp["ops"] += b_ops
+            mlp["tc_ops"] += b_tc
         mlp["err"] = max(mlp["err"], err)
-        tile = FK.row_tile(widths, rows, n_sms)
-        print(f"{gname:12s} {rows:7d} {str(widths):24s} {tile:4d} "
-              f"{FK.col_splits(widths, rows, tile, n_sms):5d} "
-              f"{FK.smem_bytes(widths, tile):6d} {rms(want):8.3g} "
-              f"{scale:8.3g} {err:9.2e} {t['ms']:8.4f} {t['plain']:8.4f} "
-              f"{t['cublas']:8.4f} {bound:8.4f} "
-              f"{'ops' if b_ops >= b_bytes else 'bytes':>5s}")
-    print(f"PointNet++(s) forward, 6 groups: kernel {mlp['ms']:.4f} ms, "
-          f"plain {mlp['plain']:.4f} ms, cuBLAS layer by layer "
-          f"{mlp['cublas']:.4f} ms, bound {mlp['bound']:.4f} ms (bytes "
-          f"{mlp['bytes']:.4f}, ops {mlp['ops']:.4f})")
+        print(f"{gname:12s} {rows:7d} {str(widths):24s} {plan.variant:9s} "
+              f"{plan.rows:3d} {str(plan.grid):>9s} {plan.smem:6d} "
+              f"{rms(want):8.3g} {scale:8.3g} {err:9.2e} {err_fma:9.2e} "
+              f"{t['ms']:8.4f} {t['fma']:8.4f} {t['plain']:8.4f} "
+              f"{t['cublas']:8.4f} {bound_f32:8.4f} {bound:8.4f} "
+              f"{'ops' if b_tc >= b_bytes else 'bytes':>5s}")
+    mlp["groups"] = per_group
+    print(f"PointNet++(s) forward, 6 groups: kernel {mlp['ms']:.4f} ms, FMA "
+          f"kernel {mlp['fma']:.4f} ms, plain {mlp['plain']:.4f} ms, cuBLAS "
+          f"layer by layer {mlp['cublas']:.4f} ms; bound (tf32x3) "
+          f"{mlp['bound']:.4f} ms (bytes {mlp['bytes']:.4f}, 3 x ops "
+          f"{mlp['tc_ops']:.4f}), bound (f32) {mlp['bound_f32']:.4f} ms (ops "
+          f"{mlp['ops']:.4f})")
 
     # 6. point path: PointNet++(s) through the kernel
     FK.reset_launch_counts()
@@ -558,16 +656,20 @@ def point_phases(dev, mem_rate: float, flop_rate: float,
         torch.cuda.synchronize()
         seg_ms.append((time.perf_counter() - t0) * 1e3)
     point_launches = dict(FK.LAUNCHES)
-    if point_launches["fused_mlp"] != 4 * per_forward:
+    tensor_core = sum(point_launches[f"fused_mlp_{v}"] for v in FK.VARIANTS
+                      if v != "fma")
+    if point_launches["fused_mlp"] != 4 * per_forward or \
+            tensor_core != 4 * per_forward:
         raise AssertionError(f"fused_mlp launches {point_launches}, expected "
-                             f"{per_forward} per forward")
+                             f"{per_forward} per forward, none fma")
     n_pts = PN_BATCH[2] * PN_BATCH[3]
     seg_median = statistics.median(seg_ms[1:])
     print(f"PointNet++(s) forward {PN_BATCH[2]}x{PN_BATCH[3]}: warm-up "
           f"{seg_ms[0]:.2f} ms, timed {[round(v, 2) for v in seg_ms[1:]]} "
           f"ms, median {seg_median:.2f} ms, {n_pts / seg_median * 1e3:.0f} "
           f"points/s; fused_mlp launches {point_launches['fused_mlp']} "
-          f"({per_forward} per forward)")
+          f"({per_forward} per forward; by variant "
+          f"{ {v: point_launches[f'fused_mlp_{v}'] for v in FK.VARIANTS} })")
     if seg_logits.shape != (PN_BATCH[2], PN_BATCH[3], 13):
         raise AssertionError(f"PointNet++(s) logits {seg_logits.shape}")
     check_labels("PointNet++(s)", seg_logits, seg_plain, pmask)
@@ -598,27 +700,44 @@ def point_phases(dev, mem_rate: float, flop_rate: float,
 
     # 7. the other five models, through the kernel and plain
     others = [
-        ("PointNet", pointnet, {}, pointnet_plain),
-        ("PointNet++(c)", model("pointnetpp_cls_init", 2, n_classes=40), {},
-         None),
-        ("PointNet++(ps)", model("pointnetpp_seg_init", 3, n_classes=50),
-         {}, None),
-        ("DGCNN", model("dgcnn_init", 4, n_classes=16), {"k": 20}, None),
-        ("F-PointNet++", model("fpointnetpp_init", 5), {}, None),
+        ("PointNet", pointnet, {}),
+        ("PointNet++(c)", model("pointnetpp_cls_init", 2, n_classes=40), {}),
+        ("PointNet++(ps)", model("pointnetpp_seg_init", 3, n_classes=50), {}),
+        ("DGCNN", model("dgcnn_init", 4, n_classes=16), {"k": 20}),
+        ("F-PointNet++", model("fpointnetpp_init", 5), {}),
     ]
+    # DGCNN takes kNN on features, where a difference of 1e-6 can swap two
+    # neighbours at a near tie and change the graph: each forward through
+    # the kernel takes the plain run's kNN graph (`imposed_knn`), and every
+    # neighbour set its own kNN would choose otherwise must be a near tie
+    # (on xyz, as in the other models, the sets are equal)
     cloud_rows = torch.ones(OTHER_BATCH[2], dtype=torch.bool, device=dev)
-    for label, net, kw, plain in others:
-        if plain is None:
-            with mlp_groups_through(plain_groups()):
-                plain = net(oxyz, omask, **kw)
-        before = FK.LAUNCHES["fused_mlp"]
-        out = net(oxyz, omask, **kw)
+    for label, net, kw in others:
+        store, roots = [], []
+        with mlp_groups_through(plain_groups()), \
+                knn_through(recording_knn(store)):
+            plain = net(oxyz, omask, **kw)
+        before = dict(FK.LAUNCHES)
+        with knn_through(imposed_knn(store, roots)):
+            out = net(oxyz, omask, **kw)
         torch.cuda.synchronize()
-        n_launch = FK.LAUNCHES["fused_mlp"] - before
-        print(f"{label}: {n_launch} fused_mlp launches")
-        if n_launch != planned_launches(net.tree()):
-            raise AssertionError(f"{label}: {n_launch} launches, planned "
-                                 f"{planned_launches(net.tree())}")
+        moved = {k: v - before[k] for k, v in FK.LAUNCHES.items()
+                 if v != before[k]}
+        n_launch = moved.get("fused_mlp", 0)
+        print(f"{label}: {n_launch} fused_mlp launches ({moved}); kNN calls "
+              f"(queries, sets that differ from the plain run's, of them not "
+              f"near ties): {roots}")
+        if n_launch != planned_launches(net.tree()) or "fused_mlp_fma" in moved:
+            raise AssertionError(f"{label}: launches {moved}, planned "
+                                 f"{planned_launches(net.tree())}, none fma")
+        if any(r[2] for r in roots):
+            raise AssertionError(f"{label}: a kNN set differs from the plain "
+                                 f"run's away from a near tie: {roots}")
+        free = net(oxyz, omask, **kw)
+        free = free["seg"] if isinstance(free, dict) else free
+        ok_free, msg = labels_agree(free, plain["seg"] if isinstance(
+            plain, dict) else plain, omask if free.dim() == 3 else cloud_rows)
+        print(f"{label} with its own kNN graph (not checked): {msg}")
         if label == "F-PointNet++":
             for key in ("center", "box"):
                 ok, err, scale = rel_close(out[key], plain[key])
@@ -675,7 +794,7 @@ def point_phases(dev, mem_rate: float, flop_rate: float,
                          and e.name not in names
                          and not getattr(e, "is_user_annotation", False)]
         kernel_events = [e for e in device_events
-                         if "fused_mlp_kernel" in e.name]
+                         if "fused_mlp_" in e.name and "_kernel" in e.name]
         print("PointNet++(s) forward split under the profiler (device = "
               "kernels the profiler ties to the calls; ball_query includes "
               "its knn; the ctypes launches are not tied to "
@@ -683,7 +802,7 @@ def point_phases(dev, mem_rate: float, flop_rate: float,
         print(f"PointNet++(s) profiled forward: device time of all device "
               f"events (kernels, copies, fills) "
               f"{sum(busy_us(e) for e in device_events) / 1e3:.3f} ms over "
-              f"{len(device_events)}; fused_mlp_kernel "
+              f"{len(device_events)}; fused_mlp kernels (every variant) "
               f"{sum(busy_us(e) for e in kernel_events) / 1e3:.3f} ms over "
               f"{len(kernel_events)} launches")
     return point_launches, mlp
@@ -1626,6 +1745,30 @@ def main(argv) -> int:
                   f"{regs[0][0]} registers, spill stores/loads {regs[0][1]}/"
                   f"{regs[0][2]} bytes")
 
+    # fused_mlp: registers and spills of every instance; HMMA ... TF32 in each
+    # tensor-core instance that the PointNet++(s) groups take
+    from repro_torch.kernels.fused_mlp import fused_mlp as FK
+    for lib in ("fused_mlp", "fused_mlp_tc"):
+        for kname, (regs, st, ld) in ptxas_kernels(
+                build.build_log.get(lib, "")).items():
+            short = kname.split("_cu_")[-1] if "_cu_" in kname else kname
+            print(f"  ptxas: {lib}: {short}: {regs} registers, spill "
+                  f"stores/loads {st}/{ld} bytes")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for gname, widths, rows in PN_SEG_GROUPS:
+        plan = FK.plan_mlp(widths, rows, torch.float32, n_sm)
+        if plan.variant != "tc":
+            raise AssertionError(f"PointNet++(s) {gname}: variant "
+                                 f"{plan.variant}, expected tc")
+        mlp_name = f"fused_mlp_tc_kernelILi{plan.rows}ELb0ELb0E"
+        hmma = [ln for ln in sass_lines(libs["fused_mlp_tc"], mlp_name,
+                                        "HMMA") if "TF32" in ln]
+        if not hmma:
+            raise AssertionError(f"no HMMA TF32 in {mlp_name}'s SASS")
+        print(f"SASS: PointNet++(s) {gname} takes {mlp_name} ({plan}): "
+              f"{len(hmma)} HMMA TF32 instructions, e.g. "
+              f"{hmma[0].split(';')[0]}")
+
     scenes = {key: city_scene(*key) for key in (SCENE_A, SCENE_B)}
 
     # 3. kernels, on the inputs of every conv of one forward
@@ -1887,7 +2030,7 @@ def main(argv) -> int:
     if not bool(torch.isfinite(fod_logits).all()):
         raise AssertionError("non-finite logits")
 
-    point_launches, mlp = point_phases(dev, mem_rate, flop_rate,
+    point_launches, mlp = point_phases(dev, mem_rate, flop_rate, tf32_rate,
                                        "--profile" in argv)
     lm_kernels = lm_phases(dev, mem_rate,
                            BF16_PEAKS["pcie" if "PCIe" in name else "sxm"],
@@ -1960,14 +2103,19 @@ def main(argv) -> int:
          "library_ms": None, "gemm_only_ms": totals["gemm"], "plan": plans,
          "per": "one forward: sum over its 41 conv sites"},
         {"name": "fused_mlp", "route": "cuda",
-         "source": "src/repro_torch/kernels/fused_mlp/csrc/fused_mlp.cu",
+         "source": "src/repro_torch/kernels/fused_mlp/csrc/fused_mlp_tc.cu",
          "replaces": "src/repro/kernels/fused_mlp/fused_mlp.py:42",
          "launches": point_launches["fused_mlp"],
+         "launches_by_variant": {v: point_launches[f"fused_mlp_{v}"]
+                                 for v in FK.VARIANTS},
          "max_abs_err": mlp["err"], "ms": mlp["ms"],
-         "kernel_ms": mlp["ms"], "plain_ms": mlp["plain"],
-         "bound_ms": mlp["bound"],
-         "bound_by": "operations" if mlp["ops"] >= mlp["bytes"]
-         else "bytes",
+         "kernel_ms": mlp["ms"], "earlier_ms": mlp["fma"],
+         "earlier": "float32 FMA kernel, csrc/fused_mlp.cu",
+         "plain_ms": mlp["plain"], "bound_ms": mlp["bound"],
+         "bound_by": "operations" if mlp["tc_ops"] >= mlp["bytes"]
+         else "bytes", "bound_route": "split-float TF32 tensor cores: 3 x "
+         f"FLOPs / {tf32_rate / 1e12:g} TFLOP/s",
+         "bound_f32_ms": mlp["bound_f32"],
          "library_ms": mlp["cublas"],
          "library": "cuBLAS layer by layer (torch.addmm + relu_)",
          "timing": "device ms a call: 20 calls in one CUDA graph",

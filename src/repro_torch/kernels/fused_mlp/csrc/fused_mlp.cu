@@ -1,4 +1,7 @@
-// Temporal layer fusion for Hopper (sm_90a): a chain of dense layers per row tile.
+// Temporal layer fusion for Hopper (sm_90a): a chain of dense layers per row tile, in
+// float32 FMAs.  The tensor-core kernel (fused_mlp_tc.cu) takes every 16-byte-aligned
+// operand set; this one keeps the rest (fused_mlp.py `plan_mlp`, variant "fma"), and
+// `fused_mlp_kernel(..., kind="fma")` runs it for tests and timing.
 //
 //   h_0 = x;  h_{i+1} = act_i(h_i @ W_i + b_i);  out = h_L   (act = ReLU, none on the
 //   last layer unless final_act)
@@ -141,7 +144,7 @@ __device__ __forceinline__ void column_pass(const float* in, int cin, const void
 
 template <int RPW, bool BF16>
 __global__ void __launch_bounds__(kThreads)
-    fused_mlp_kernel(Chain ch, const void* __restrict__ x, void* __restrict__ out,
+    fused_mlp_fma_kernel(Chain ch, const void* __restrict__ x, void* __restrict__ out,
                      int n_rows, int final_act) {
   constexpr int R = kWarps * RPW;
   extern __shared__ float smem[];
@@ -204,7 +207,7 @@ cudaError_t launch(const Chain& ch, const void* x, void* out, int n_rows, int co
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (smem > kDefaultSmem && !raised[dev]) {
-    err = cudaFuncSetAttribute(fused_mlp_kernel<RPW, BF16>,
+    err = cudaFuncSetAttribute(fused_mlp_fma_kernel<RPW, BF16>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(kMaxSmem));
     if (err != cudaSuccess) return err;
@@ -212,7 +215,7 @@ cudaError_t launch(const Chain& ch, const void* x, void* out, int n_rows, int co
   }
   constexpr int R = kWarps * RPW;
   const dim3 grid((n_rows + R - 1) / R, col_splits);
-  fused_mlp_kernel<RPW, BF16><<<grid, kThreads, smem, stream>>>(ch, x, out, n_rows,
+  fused_mlp_fma_kernel<RPW, BF16><<<grid, kThreads, smem, stream>>>(ch, x, out, n_rows,
                                                                 final_act);
   return cudaGetLastError();
 }

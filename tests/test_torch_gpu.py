@@ -237,18 +237,8 @@ def test_spconv_kernel_replays_in_a_cuda_graph_with_new_maps(fused):
         inv_t.copy_(saved)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("widths,final_act,n", [
-    ([3, 32, 32, 64], True, 1000), ([67, 64, 64, 128], True, 1000),
-    ([128, 1024], True, 1000), ([1024, 512, 256, 40], False, 1000),
-    ([1024, 512], True, 8)])       # 1000: not a multiple of any row tile
-def test_fused_mlp_kernel_matches_plain_version(widths, final_act, n, dtype):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    from repro_torch.kernels.fused_mlp import fused_mlp as F
-    from repro_torch.kernels.fused_mlp.ref import fused_mlp_ref
-    rng = np.random.default_rng(sum(widths))
+def _mlp_operands(widths, n, dtype, seed=None):
+    rng = np.random.default_rng(sum(widths) + n if seed is None else seed)
     dt = getattr(torch, dtype)
 
     def dev(a):
@@ -258,15 +248,118 @@ def test_fused_mlp_kernel_matches_plain_version(widths, final_act, n, dtype):
     ws = [dev(rng.normal(size=(a, b)) / np.sqrt(a))
           for a, b in zip(widths[:-1], widths[1:])]
     bs = [dev(rng.normal(size=b) * 0.1) for b in widths[1:]]
-    before = F.LAUNCHES["fused_mlp"]
+    return x, ws, bs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("widths,final_act,n,variant", [
+    # the six PointNet++(s) groups on the resident route (1000 rows: not a
+    # multiple of any row tile)
+    ([3, 32, 32, 64], True, 1000, "tc"), ([67, 64, 64, 128], True, 1000, "tc"),
+    ([192, 128], True, 1000, "tc"), ([128, 64], True, 1000, "tc"),
+    ([64, 64, 64], True, 1000, "tc"), ([64, 64, 13], False, 1000, "tc"),
+    ([64, 64, 13], True, 1000, "tc"),
+    # ragged row counts
+    ([3, 32, 32, 64], True, 1, "tc"), ([67, 64, 64, 128], True, 63, "tc"),
+    ([64, 64, 13], False, 65, "tc"), ([256, 7], False, 8, "tc"),
+    # weights over the budget: streamed (one layer split over grid y; three)
+    ([128, 1024], True, 1000, "tc_stream"), ([1024, 512], True, 1000, "tc_stream"),
+    ([1024, 512, 256, 40], False, 1000, "tc_stream"),
+    ([128, 1024], False, 65, "tc_stream"),
+    # one layer at few rows: K split over a cluster
+    ([1024, 512], True, 8, "few_rows"), ([1024, 512], False, 1, "few_rows"),
+    ([256, 40], False, 15, "few_rows"), ([67, 256], True, 8, "few_rows")])
+def test_fused_mlp_kernel_matches_plain_version(widths, final_act, n, variant,
+                                                dtype):
+    """Each route of `plan_mlp` against the plain version; the launch moves
+    "fused_mlp" and the variant's count by one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.kernels.fused_mlp import fused_mlp as F
+    from repro_torch.kernels.fused_mlp.ref import fused_mlp_ref
+    x, ws, bs = _mlp_operands(widths, n, dtype)
+    assert F.plan_for(x, ws, bs).variant == variant
+    before = dict(F.LAUNCHES)
     got = F.fused_mlp_cuda(x, ws, bs, final_act)
     torch.cuda.synchronize()
-    assert got.dtype == dt and got.shape == (n, widths[-1])
-    tol = TOL if dt == torch.float32 else dict(rtol=2e-2, atol=2e-2)
+    assert got.dtype == x.dtype and got.shape == (n, widths[-1])
     torch.testing.assert_close(got.float(),
                                fused_mlp_ref(x, ws, bs, final_act).float(),
-                               **tol)
-    assert F.LAUNCHES["fused_mlp"] == before + 1
+                               **_tol(dtype))
+    assert F.LAUNCHES["fused_mlp"] == before["fused_mlp"] + 1
+    assert F.LAUNCHES[f"fused_mlp_{variant}"] == \
+        before[f"fused_mlp_{variant}"] + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["tc", "fma"])
+@pytest.mark.parametrize("widths,n", [
+    ([3, 32, 32, 64], 1000), ([67, 64, 64, 128], 1000), ([192, 128], 1000),
+    ([128, 64], 1000), ([64, 64, 64], 1000), ([64, 64, 13], 1000)])
+def test_fused_mlp_forced_kind_matches_plain_version(widths, n, kind, dtype):
+    """`fused_mlp_kernel(kind=...)`: the resident route and the FMA kernel
+    at the PointNet++(s) widths."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.kernels.fused_mlp import fused_mlp as F
+    from repro_torch.kernels.fused_mlp.ref import fused_mlp_ref
+    x, ws, bs = _mlp_operands(widths, n, dtype)
+    final_act = widths[-1] != 13
+    before = F.LAUNCHES[f"fused_mlp_{kind}"]
+    got = F.fused_mlp_kernel(x, ws, bs, final_act, kind=kind)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(),
+                               fused_mlp_ref(x, ws, bs, final_act).float(),
+                               **_tol(dtype))
+    assert F.LAUNCHES[f"fused_mlp_{kind}"] == before + 1
+
+
+@pytest.mark.gpu
+def test_unaligned_fused_mlp_operand_takes_the_fma_kernel():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.kernels.fused_mlp import fused_mlp as F
+    from repro_torch.kernels.fused_mlp.ref import fused_mlp_ref
+    x, ws, bs = _mlp_operands([67, 64, 64, 128], 1000, "float32")
+    shifted = torch.empty(x.numel() + 1, device="cuda")[1:].view(x.shape)
+    shifted.copy_(x)
+    assert F.plan_for(shifted, ws, bs).variant == "fma"
+    before = F.LAUNCHES["fused_mlp_fma"]
+    got = F.fused_mlp_cuda(shifted, ws, bs)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, fused_mlp_ref(x, ws, bs), **TOL)
+    assert F.LAUNCHES["fused_mlp_fma"] == before + 1
+    with pytest.raises(ValueError, match="variant 'fma'"):
+        F.fused_mlp_kernel(shifted, ws, bs, kind="tc")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("widths,n", [([67, 64, 64, 128], 1000),
+                                      ([128, 1024], 1000), ([1024, 512], 8)])
+def test_fused_mlp_kernel_replays_in_a_cuda_graph_with_new_x(widths, n):
+    """Planned from shapes only: a captured call (resident, streamed and
+    few-row routes) replays with new values in x."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.kernels.fused_mlp import fused_mlp as F
+    from repro_torch.kernels.fused_mlp.ref import fused_mlp_ref
+    x, ws, bs = _mlp_operands(widths, n, "float32")
+    x_b, _, _ = _mlp_operands(widths, n, "float32", seed=5)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        F.fused_mlp_cuda(x, ws, bs)              # warm-up: build, load
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = F.fused_mlp_cuda(x, ws, bs)
+    for values in (x.clone(), x_b):
+        x.copy_(values)
+        graph.replay()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, fused_mlp_ref(x, ws, bs), **TOL)
 
 
 def _cuda(rng, shape, dtype, scale=1.0):

@@ -69,7 +69,7 @@ def test_model_matches_reference(cloud, name):
     K.reset_launch_counts()
     got = module(torch.from_numpy(xyz), torch.from_numpy(mask),
                  **MODELS[name][2])
-    assert K.LAUNCHES == {"fused_mlp": 0}
+    assert set(K.LAUNCHES.values()) == {0}          # CPU: the plain version
     per_point = MODELS[name][3]
     if name == "f-pointnet++":
         for key in ("center", "box"):
