@@ -49,6 +49,35 @@ Phases (any failure exits non-zero; none catches its own):
      all on the tensor-core variant.  Labels are checked against
      the "fod" logits on valid rows: a mismatch is allowed only where the
      top-2 logit gap is below the tolerance.
+  4b. batched serving: a `ServeScheduler(engine, max_batch=4,
+     pipeline_depth=2)` over phase 4's full-width MinkUNet (flow
+     "cuda_fused") serves a stream of 12 `city_scene` scenes of mixed
+     size, interleaved (65536 bucket: scenes A, B, 45000 and 35000 points;
+     32768: 18000, 24000, 30000; 16384: 9000, 15000; then A, B, A again),
+     flush() and drain(), then the same ordered stream once more (every
+     micro-batch composition repeats: AssemblyCache hits).  Every result
+     must be ok, with labels equal to `engine.segment` of the same scene
+     on every row (the scheduler runs each scene through the same code).
+     `segment_batch` on (4, 50000) stacked scenes must equal four
+     `segment` calls, and `levels_for(batched=True)` must then find their
+     four pyramids in the mapping cache.  Launch counts are zeroed just before and read just
+     after: 41 tensor-core `spconv_fod_fused` launches per real scene the
+     engine's micro-batches ran, none of the FMA variant or of
+     `spconv_fod`.  stats() keys must equal `SCHEDULER_STATS_KEYS`, the
+     mapping cache must show the stream's 9 misses and 3 hits, the
+     assembly cache 4 misses then 4 hits, `compile_stats()` at most the 3
+     buckets; one more pass through a scheduler with
+     `FaultPlan(fail_dispatches={1})` (no bisect) must retry once and
+     still give equal labels.  Every distinct scene also runs one plain
+     "fod" forward, outside the counted window: the served labels must
+     equal its argmax on valid rows except where its top-2 gap is below
+     TOL (phase 4's rule).  Apart from that injected failure no
+     dispatch may fail and no request may end rejected, shed, timed out
+     or exec_failed.  The producer polls after each submit.  Prints
+     scenes/s of each pass (host clock from the first submit to the last
+     result) and p50/p95 request latency (from stats(), and exact from the
+     results).  With `--profile`, a cold pass over a fresh engine and a
+     replay pass run under torch.profiler (device busy share, host ops).
   5. point kernels: one plain full-width PointNet++(s) forward (13
      classes, B = 16 clouds of N = 4096 points from `dense_xyz_batch`, the
      last cloud masked to 3000 valid points) and one plain full-width
@@ -165,6 +194,11 @@ ROOT = Path(__file__).resolve().parent
 TOL = 1e-4                 # atol = rtol: float32 summation-order differences
 SCENE_A = (11, 50000)      # city_scene(seed, n_points): 65536 bucket
 SCENE_B = (12, 40000)
+SERVE_STREAM = (  # phase 4b, in submission order: buckets 65536 / 32768 / 16384
+    SCENE_A, (15, 18000), (18, 9000), SCENE_B, (16, 24000), (13, 45000),
+    (19, 15000), (17, 30000), (14, 35000), SCENE_A, SCENE_B, SCENE_A)
+SERVE_BATCH = (SCENE_A, (20, 50000), (21, 50000), (22, 50000))  # segment_batch
+SERVE_MAX_BATCH = 4
 N_STAGES = 4
 REPS = 10
 NAMED = {  # the shapes the kernel phase must cover, by site
@@ -457,6 +491,49 @@ def check_labels(label, got, want, valid):
                              "beyond the tolerance")
 
 
+def check_vs_fod(label, preds, logits, valid, quiet=False):
+    """MinkUNet labels against the plain "fod" forward's `logits`: class
+    ids in range on every row, and equal to the plain argmax on `valid`
+    rows except where the plain top-2 gap is below TOL.  Returns (rows
+    that differ, of them near ties)."""
+    n_classes = logits.shape[1]
+    if preds.shape != logits.shape[:1] or int(preds.min()) < 0 \
+            or int(preds.max()) >= n_classes:
+        raise AssertionError(f"{label}: bad predictions {preds.shape}")
+    top2 = logits.topk(2, dim=-1).values
+    gap = top2[:, 0] - top2[:, 1]
+    diff = (preds != logits.argmax(-1)) & valid
+    close = diff & (gap < TOL)
+    if not quiet:
+        print(f"labels {label} vs fod: {int(diff.sum())} of "
+              f"{int(valid.sum())} valid rows differ, {int(close.sum())} of "
+              f"them within a top-2 gap < {TOL:g}")
+    if int((diff & ~close).sum()):
+        raise AssertionError(f"{label}: labels differ from fod beyond the "
+                             "tolerance")
+    return int(diff.sum()), int(close.sum())
+
+
+def fod_logits_of(probe, scene):
+    """Logits of the plain ("fod") full forward of one raw scene through
+    the engine `probe` (flow "fod"), on the scene's rows."""
+    import torch
+    from repro_torch.core import mapping as M
+    from repro_torch.models import minkunet as MU
+    from repro_torch.serve.buckets import pad_scene
+    coords, mask, feats = scene
+    cap = probe.ladder.bucket_for(coords.shape[0])
+    c, m, f = pad_scene(coords, mask, feats, cap)
+    levels, _ = probe._levels_padded(c, m, cap)
+    dev = probe.device
+    pc = M.PointCloud(torch.from_numpy(c).to(dev), torch.from_numpy(m).to(dev),
+                      1)
+    logits = MU.minkunet_apply(probe.module, pc,
+                               torch.from_numpy(f).to(dev).float(),
+                               flow="fod", levels=levels)
+    return logits[:coords.shape[0]]
+
+
 def site_names(tree) -> list[str]:
     """Conv sites in `minkunet_forward` order."""
     names = ["stem"]
@@ -524,6 +601,201 @@ def level_of(site: str) -> int:
         return 0
     i = int(site[3])
     return i + 1 if site.startswith("enc") else N_STAGES - 1 - i
+
+
+def serving_phase(module, n_stages: int, scenes: dict, segment_engine,
+                  stream=SERVE_STREAM, batch=SERVE_BATCH,
+                  with_profile: bool = False) -> dict:
+    """Phase 4b: a stream of scenes through a `ServeScheduler` over a
+    fresh engine (flow "cuda_fused"), checked against
+    `segment_engine.segment` (exactly) and against the plain "fod"
+    forward of every distinct scene (phase 4's near-tie rule); returns
+    its numbers and launch counts.  `with_profile` adds a cold pass over
+    a fresh engine and one more replay pass, both under torch.profiler."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.spconv import spconv as K
+    from repro_torch.obs import metrics as MX
+    from repro_torch.serve.engine import PointCloudEngine
+    from repro_torch.serve.faults import FaultPlan
+    from repro_torch.serve.scheduler import ServeScheduler
+
+    n_sites = len(site_names(module.tree()))
+    engine = PointCloudEngine(module, n_stages, flow="cuda_fused",
+                              max_batch=SERVE_MAX_BATCH)
+    sched = ServeScheduler(engine, max_batch=SERVE_MAX_BATCH,
+                           pipeline_depth=2)
+    plain = PointCloudEngine(module, n_stages, flow="fod")
+    got = []                   # (label, scene, labels): checked after counting
+    want = {}                  # scene -> (segment labels, plain fod logits)
+
+    def check_labels_equal():
+        near = differ = 0
+        for label, key, preds in got:
+            if key not in want:
+                coords, mask, feats = scenes[key]
+                want[key] = (segment_engine.segment(
+                    coords, mask, feats)[0].cpu().numpy(),
+                    fod_logits_of(plain, scenes[key]).cpu())
+            seg, logits = want[key]
+            d, c = check_vs_fod(f"{label} scene {key}",
+                                torch.from_numpy(preds).long(), logits,
+                                torch.from_numpy(scenes[key][1]), quiet=True)
+            differ, near = differ + d, near + c
+            if not np.array_equal(preds, seg):
+                diff = int((preds != seg).sum())
+                raise AssertionError(f"{label}: scene {key}: {diff} labels "
+                                     "differ from segment")
+        print(f"labels: {len(got)} served scenes equal to segment of the "
+              f"same scene on every row; against the plain fod forward of "
+              f"each of {len(want)} distinct scenes {differ} valid rows "
+              f"differ, {near} of them within a top-2 gap < {TOL:g}")
+        got.clear()
+
+    def run(sch, label):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rids, out = [], []
+        for key in stream:     # a producer that takes what is ready as it goes
+            rids.append(sch.submit(scenes[key][0], scenes[key][2],
+                                   scenes[key][1]))
+            out += sch.poll()
+        sch.flush()
+        out += sch.drain()
+        wall = time.perf_counter() - t0
+        by_rid = {r.rid: r for r in out}
+        if sorted(by_rid) != sorted(rids):
+            raise AssertionError(f"{label}: results for {sorted(by_rid)}, "
+                                 f"submitted {sorted(rids)}")
+        lat = []
+        for rid, key in zip(rids, stream):
+            r = by_rid[rid]
+            if not r.ok:
+                raise AssertionError(f"{label}: scene {key} failed: "
+                                     f"{r.error}")
+            got.append((label, key, r.preds))
+            lat.append(r.latency_s * 1e3)
+        print(f"{label}: {len(rids)} scenes in {wall * 1e3:.2f} ms = "
+              f"{len(rids) / wall:.2f} scenes/s; request latency exact p50 "
+              f"{np.percentile(lat, 50):.2f} ms, p95 "
+              f"{np.percentile(lat, 95):.2f} ms; completion order "
+              f"{[r.rid for r in out]}")
+        return {"wall_ms": wall * 1e3, "scenes_per_s": len(rids) / wall,
+                "p50_ms": float(np.percentile(lat, 50)),
+                "p95_ms": float(np.percentile(lat, 95))}
+
+    def clean(st, label, failed_dispatches=0):
+        ft = st["faults"]
+        bad = {k: ft[k] for k in ("rejected", "shed", "timeout",
+                                  "exec_failed") if ft[k]}
+        if bad or ft["failed_dispatches"] != failed_dispatches:
+            raise AssertionError(f"{label}: faults {ft}")
+
+    K.reset_launch_counts()
+    cold = run(sched, "serve stream (cold)")
+    st_cold = sched.stats()
+    print(f"cold pass: host assembly (mapping misses included) "
+          f"{st_cold['assembly_time_per_batch_s'] * 1e3:.3f} ms a batch")
+    warm = run(sched, "serve stream (replay)")
+    st = sched.stats()
+    coords = np.stack([scenes[k][0] for k in batch])
+    mask = np.stack([scenes[k][1] for k in batch])
+    feats = np.stack([scenes[k][2] for k in batch])
+    preds, _ = engine.segment_batch(coords, mask, feats)
+    launches = dict(K.LAUNCHES)
+    got.extend(("segment_batch", key, preds[b].numpy())
+               for b, key in enumerate(batch))
+    check_labels_equal()
+    levels, hit = engine.levels_for(coords, mask, batched=True)
+    if not hit or len(levels) != len(batch):
+        raise AssertionError(f"levels_for(batched=True): {len(levels)} "
+                             f"pyramids, hit={hit}")
+    print(f"levels_for(batched=True): {len(levels)} cached pyramids")
+    batch_st = engine.scheduler().stats()
+    ran = sum(b["scenes"] for b in st["buckets"].values()) + \
+        sum(b["scenes"] for b in batch_st["buckets"].values())
+    print(f"serve launches over {ran} scheduled scenes: {launches}")
+    if launches["spconv_fod_fused"] != n_sites * ran or \
+            launches["spconv_fod_fused_tc"] != n_sites * ran or \
+            launches["spconv_fod_fused_fma"] or launches["spconv_fod"]:
+        raise AssertionError(f"serve launches {launches}: expected "
+                             f"{n_sites} x {ran} fused, all on the tensor "
+                             "cores")
+
+    if set(st) != MX.SCHEDULER_STATS_KEYS or \
+            set(st["faults"]) != MX.SCHEDULER_FAULT_KEYS or \
+            any(set(b) != MX.SCHEDULER_BUCKET_KEYS
+                for b in st["buckets"].values()):
+        raise AssertionError(f"stats() keys {sorted(st)}")
+    n_unique = len(set(stream))
+    mc, ac = st_cold["mapping_cache"], st["assembly_cache"]
+    n_batches = sum(b["batches"] for b in st_cold["buckets"].values())
+    if (mc["misses"], mc["hits"]) != (n_unique, len(stream) - n_unique) \
+            or st["mapping_cache"] != mc:
+        raise AssertionError(f"mapping cache {mc} then "
+                             f"{st['mapping_cache']}")
+    if (ac["misses"], ac["hits"]) != (n_batches, n_batches) or \
+            st_cold["assembly_cache"]["hits"]:
+        raise AssertionError(f"assembly cache {ac}")
+    comp = engine.compile_stats()
+    n_buckets = len(st["buckets"])
+    if max(comp.values()) > n_buckets:
+        raise AssertionError(f"compile_stats {comp} over {n_buckets} buckets")
+    clean(st, "serve stream")
+    clean(batch_st, "segment_batch")
+    print(f"serve stats: buckets {st['buckets']}; mapping cache {mc}; "
+          f"assembly cache {ac}; compile_stats {comp}; padding overhead "
+          f"{st['padding_overhead']:.4f}; assembly "
+          f"{st['assembly_time_per_batch_s'] * 1e3:.3f} ms a batch; latency "
+          f"quantiles (stats(), both passes) "
+          f"{ {k: round(v * 1e3, 2) for k, v in st['latency_quantiles_s'].items()} } ms")
+
+    faulty = ServeScheduler(engine, max_batch=SERVE_MAX_BATCH,
+                            pipeline_depth=2, retry_bisect=False,
+                            fault_plan=FaultPlan(fail_dispatches={1}))
+    run(faulty, "serve stream (one injected dispatch failure)")
+    check_labels_equal()
+    fst = faulty.stats()
+    clean(fst, "injected fault", failed_dispatches=1)
+    if fst["faults"]["retries"] != 1:
+        raise AssertionError(f"injected fault: faults {fst['faults']}")
+    print(f"injected fault: retried once, faults {fst['faults']}")
+    if with_profile:
+        from torch.profiler import ProfilerActivity, profile
+
+        def span_ms(es):
+            return sum(e.time_range.end - e.time_range.start
+                       for e in es) / 1e3
+        fresh = PointCloudEngine(module, n_stages, flow="cuda_fused",
+                                 max_batch=SERVE_MAX_BATCH)
+        for label, sch in (
+                ("cold, fresh engine", ServeScheduler(
+                    fresh, max_batch=SERVE_MAX_BATCH, pipeline_depth=2)),
+                ("replay", sched)):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                res = run(sch, f"serve stream ({label}, profiled)")
+            got.clear()
+            wall = res["wall_ms"]
+            print(prof.key_averages().table(sort_by="cuda_time_total",
+                                            row_limit=12))
+            print(prof.key_averages().table(sort_by="self_cpu_time_total",
+                                            row_limit=15))
+            evs = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)]
+            conv = [e for e in evs if "spconv_fod_tc_kernel" in e.name]
+            pst = sch.stats()
+            print(f"serve {label} under the profiler: wall {wall:.2f} ms, "
+                  f"device events {span_ms(evs):.3f} ms over {len(evs)} "
+                  f"(busy {span_ms(evs) / wall:.3f}), spconv_fod_tc_kernel "
+                  f"{span_ms(conv):.3f} ms over {len(conv)} launches; host "
+                  f"assembly {pst['assembly_time_per_batch_s'] * 1e3:.3f} ms "
+                  f"a batch over the scheduler's passes")
+    q = st["latency_quantiles_s"]
+    return {"cold": cold, "warm": warm, "launches": launches,
+            "scenes": ran, "p50_ms": q["p50"] * 1e3,
+            "p95_ms": q["p95"] * 1e3}
 
 
 def point_phases(dev, mem_rate: float, flop_rate: float, tf32_rate: float,
@@ -1769,7 +2041,8 @@ def main(argv) -> int:
               f"{len(hmma)} HMMA TF32 instructions, e.g. "
               f"{hmma[0].split(';')[0]}")
 
-    scenes = {key: city_scene(*key) for key in (SCENE_A, SCENE_B)}
+    scenes = {key: city_scene(*key)
+              for key in (SCENE_A, SCENE_B) + SERVE_STREAM + SERVE_BATCH}
 
     # 3. kernels, on the inputs of every conv of one forward
     sites, fod_logits = record_sites(module, scenes[SCENE_A])
@@ -2007,28 +2280,19 @@ def main(argv) -> int:
 
     # labels against the plain "fod" logits, on valid rows
     valid = torch.from_numpy(mask).to(fod_logits.device)
-    top2 = fod_logits.topk(2, dim=-1).values
-    gap = top2[:, 0] - top2[:, 1]
-    want = fod_logits.argmax(-1)
-    n_classes = fod_logits.shape[1]
     for label, preds in (("cuda_fused", results[0][1]),
                          ("cuda_fused repeat", results[4][1]),
                          ("cuda", base_preds)):
-        if preds.shape != want.shape or int(preds.min()) < 0 \
-                or int(preds.max()) >= n_classes:
-            raise AssertionError(f"{label}: bad predictions {preds.shape}")
-        diff = (preds != want) & valid
-        close = diff & (gap < TOL)
-        print(f"labels {label} vs fod: {int(diff.sum())} of "
-              f"{int(valid.sum())} valid rows differ, {int(close.sum())} of "
-              f"them within a top-2 gap < {TOL:g}")
-        if int((diff & ~close).sum()):
-            raise AssertionError(f"{label}: labels differ from fod beyond "
-                                 "the tolerance")
+        check_vs_fod(label, preds, fod_logits, valid)
     if not torch.equal(results[0][1], results[4][1]):
         raise AssertionError("repeat request gave different predictions")
     if not bool(torch.isfinite(fod_logits).all()):
         raise AssertionError("non-finite logits")
+
+    # 4b. batched serving
+    print(smi)
+    serving = serving_phase(module, N_STAGES, scenes, engine,
+                            with_profile="--profile" in argv)
 
     point_launches, mlp = point_phases(dev, mem_rate, flop_rate, tf32_rate,
                                        "--profile" in argv)
@@ -2086,7 +2350,9 @@ def main(argv) -> int:
          >= totals["bytes_f"] else "bytes", "bound_route": route,
          "bound_f32_ms": totals["bound_f"],
          "library_ms": None, "gemm_only_ms": totals["gemm"], "plan": plans,
-         "per": "one forward: sum over its 41 conv sites"},
+         "per": "one forward: sum over its 41 conv sites",
+         "serve_launches": serving["launches"]["spconv_fod_fused"],
+         "serve_scenes": serving["scenes"]},
         {"name": "spconv_fod", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/spconv/spconv.py:82",
          "launches": launches["spconv_fod"],

@@ -15,7 +15,14 @@ found under the same path:
     repro_torch.models.pointnets             PointNet, PointNet++, DGCNN,
                                              F-PointNet++
     repro_torch.models.params                parameter trees, JAX weights
-    repro_torch.serve.engine                 PointCloudEngine.segment
+    repro_torch.serve.engine                 PointCloudEngine.segment,
+                                             segment_batch
+    repro_torch.serve.scheduler              ServeScheduler: bucketed
+                                             micro-batches on the card
+    repro_torch.serve.faults / overload      typed errors, FaultPlan,
+                                             overload control
+    repro_torch.obs                          metrics, traces, recorder
+    repro_torch.launch.fault_tolerance       Ticker, Pulse, Heartbeat
     repro_torch.configs                      ArchConfig, granite-moe-1b
     repro_torch.models.layers / moe / lm     LM layers, sorted MoE, LM
     repro_torch.models.registry              build(cfg) -> Model

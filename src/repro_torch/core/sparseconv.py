@@ -32,7 +32,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch import nn
-from repro_torch.core.mapping import KernelMaps, PointCloud
+from repro_torch.core.mapping import (KernelMaps, PointCloud, SortedCloud,
+                                      build_conv_maps)
 
 FLOWS = ("gms", "fod", "cuda", "cuda_fused")
 
@@ -124,6 +125,28 @@ def sparse_conv_apply(features: torch.Tensor, maps: KernelMaps,
         return spconv_ops.sparse_conv_fused(features, maps, weights, out_cap,
                                             epilogue=epilogue)
     raise ValueError(f"unknown flow {flow!r}; one of {FLOWS}")
+
+
+class SparseConvResult(NamedTuple):
+    features: torch.Tensor
+    pc: PointCloud
+    maps: KernelMaps
+
+
+def sparse_conv(pc: PointCloud, features: torch.Tensor,
+                weights: torch.Tensor, kernel_size: int, stride: int = 1,
+                flow: str = "fod", cap: int | None = None,
+                engine: str | None = None,
+                cache: SortedCloud | None = None) -> SparseConvResult:
+    """Full sparse conv layer: mapping + conv in one call; invalid output
+    rows are zeroed.  `cache` is an optional pre-sorted cloud of `pc`:
+    layers that share a stride level pass the same SortedCloud so the
+    ranking sort runs once per level."""
+    maps, out_pc = build_conv_maps(pc, kernel_size, stride, cap=cap,
+                                   engine=engine, cache=cache)
+    out = sparse_conv_apply(features, maps, weights, out_pc.capacity, flow)
+    out = out * out_pc.mask[:, None]
+    return SparseConvResult(out, out_pc, maps)
 
 
 def sparse_conv_transposed(features: torch.Tensor, maps: KernelMaps,

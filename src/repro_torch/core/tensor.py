@@ -20,6 +20,7 @@ import hashlib
 import numpy as np
 import torch
 
+from repro_torch.core import fusion as FU
 from repro_torch.core import mapping as M
 
 
@@ -56,6 +57,7 @@ class MapContext:
 
     clouds : stride -> SortedCloud or PointCloud (sorted on first demand)
     maps   : (kernel_size, in_stride, out_stride) -> KernelMaps
+    plans  : conv-site shape -> core.fusion.ConvFusionPlan (`plan`)
     """
 
     def __init__(self, engine: str | None = None, cap: int | None = None):
@@ -67,6 +69,7 @@ class MapContext:
         self.cap = cap
         self.clouds: dict[int, M.PointCloud | M.SortedCloud] = {}
         self.maps: dict[tuple[int, int, int], M.KernelMaps] = {}
+        self.plans: dict[tuple, FU.ConvFusionPlan] = {}
 
     def register_cloud(self, stride: int, cloud, overwrite: bool = False):
         """Install a cloud at a stride level (no-op if one is present)."""
@@ -133,6 +136,17 @@ class MapContext:
                 f"context first (maps built so far: {built})")
         return self.maps[key].swap(), self.point_cloud(fine_stride)
 
+    def plan(self, n_in: int, cin: int, cout: int, k: int, *,
+             residual: bool = False,
+             budget_bytes: int | None = None) -> FU.ConvFusionPlan:
+        """Memoized `core.fusion.plan_conv_epilogue` for one conv site."""
+        budget = budget_bytes or FU.DEFAULT_ONCHIP_BUDGET_BYTES
+        key = (n_in, cin, cout, k, residual, budget)
+        if key not in self.plans:
+            self.plans[key] = FU.plan_conv_epilogue(
+                n_in, cin, cout, k, residual=residual, budget_bytes=budget)
+        return self.plans[key]
+
 
 @dataclasses.dataclass(frozen=True)
 class SparseTensor:
@@ -192,3 +206,11 @@ class SparseTensor:
                                                      self.stride))
         return SparseTensor(feats, coords, mask, self.stride, ctx)
 
+
+
+def from_point_cloud(pc: M.PointCloud, feats: torch.Tensor,
+                     context: MapContext | None = None) -> SparseTensor:
+    """Wrap an existing PointCloud (already sentinel-filled) + features."""
+    ctx = context if context is not None else MapContext()
+    ctx.register_cloud(pc.stride, pc)
+    return SparseTensor(feats, pc.coords, pc.mask, pc.stride, ctx)

@@ -5,8 +5,9 @@
     `core.sparseconv.Epilogue` folded into its flush.
 
 Unlike the TPU wrappers these pad nothing: the CUDA kernel masks ragged
-row tiles, odd Cin and odd Cout itself.  The reference's window schedule
-(`window_schedule`, a VMEM-residency device) is not part of this port yet.
+row tiles, odd Cin and odd Cout itself.  `window_schedule` is the
+reference's per-tile feature-window plan, a planning function here: the
+CUDA kernels do not take it.
 """
 
 from __future__ import annotations
@@ -35,6 +36,34 @@ def invert_maps(maps: KernelMaps, out_cap: int) -> torch.Tensor:
     rows = torch.arange(k, device=inv.device)[:, None].expand(k, cap)
     inv[rows[ok], maps.out_idx[ok].long()] = maps.in_idx[ok].to(torch.int32)
     return inv
+
+
+def window_schedule(inv: torch.Tensor, n_rows: int, out_tile: int,
+                    feat_tile: int):
+    """Per-out-tile feature-window schedule (the reference's streamed
+    kernel plan; its integers are equal to the reference's).
+
+    For each out tile: the range of feature row blocks its inverse-table
+    slice touches.  wmap[o, w] = block id of sweep step w (clamped past the
+    end so revisits cost nothing); nwin[o] = number of live steps.  With
+    features in packed-key order the inverse tables are monotone per offset
+    and these ranges are tight: the paper's cache blocks.
+    """
+    k, m = inv.shape
+    tiles = m // out_tile
+    n_win = n_rows // feat_tile
+    iv = inv.reshape(k, tiles, out_tile)
+    valid = iv >= 0
+    mins = torch.where(valid, iv, n_rows).amin(dim=(0, 2))
+    maxs = torch.where(valid, iv, -1).amax(dim=(0, 2))
+    has = maxs >= 0
+    wlo = torch.where(has, mins // feat_tile, 0).to(torch.int32)
+    whi = torch.where(has, maxs // feat_tile, 0).to(torch.int32)
+    nwin = torch.where(has, whi - wlo + 1, 0).to(torch.int32)
+    sweep = torch.arange(n_win, dtype=torch.int32, device=inv.device)
+    wmap = torch.minimum((wlo[:, None] + sweep[None, :]).clamp_min(0),
+                         whi[:, None])
+    return wmap, nwin
 
 
 def sparse_conv_fod(features: torch.Tensor, maps: KernelMaps,

@@ -21,13 +21,16 @@ A CPU tensor goes to the plain version (`ref.py`) and the launch counts do
 not move.  A CUDA tensor launches a kernel on the current stream, or
 raises; the output is allocated here with `torch.empty` and nothing
 synchronises.  `LAUNCHES` counts kernel launches: each entry ("spconv_fod",
-"spconv_fod_fused") every one, and one count per entry and variant.
+"spconv_fod_fused") every one, and one count per entry and variant; the
+counts move under a lock, so launches from several threads (the serve
+scheduler's producers and watchdog) all count.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import NamedTuple
 
 import torch
@@ -80,9 +83,13 @@ class Plan(NamedTuple):
         return self.grid[0] * self.grid[1]
 
 
+_COUNT_LOCK = threading.Lock()
+
+
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _COUNT_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def pick_cn(cout: int) -> int:
@@ -281,8 +288,9 @@ def _launch(features, inv, weights, epi: Epilogue | None, kind: str | None,
     else:
         err = _fn(entry)(*ptrs, out.data_ptr(), *shape, stream)
     _raise_on(err, f"{entry}_{kind}")
-    LAUNCHES[entry] += 1
-    LAUNCHES[f"{entry}_{kind}"] += 1
+    with _COUNT_LOCK:
+        LAUNCHES[entry] += 1
+        LAUNCHES[f"{entry}_{kind}"] += 1
     return out
 
 

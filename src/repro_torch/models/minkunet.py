@@ -23,6 +23,7 @@ import torch
 
 from repro_torch import nn as N
 from repro_torch.api import PointAccSession
+from repro_torch.core import fusion as FU
 from repro_torch.core import mapping as M
 from repro_torch.core import sparseconv as SC
 from repro_torch.core.tensor import MapContext, SparseTensor
@@ -209,3 +210,31 @@ def minkunet_apply(params, pc: M.PointCloud, feats: torch.Tensor,
     x = session.tensor(pc.coords, pc.mask, feats, stride=pc.stride,
                        context=context)
     return minkunet_forward(session, params, x)
+
+
+def epilogue_dram_bytes(params, levels, fused: bool) -> int:
+    """Fig.-20-style DRAM model for the conv epilogues of one forward pass:
+    `core.fusion.dram_bytes_conv_epilogue` summed over every conv site.
+    The unfused total counts each conv's pre-activation write + read-back;
+    the fused total only the final activation writes (+ residual reads)."""
+    if isinstance(params, ParamTree):
+        params = params.tree()
+    n_stages = len(params["enc"])
+
+    def site(n_out, w, residual=False):
+        return FU.dram_bytes_conv_epilogue(n_out, w.shape[2],
+                                           residual=residual, fused=fused)
+
+    def block(p, cap):
+        return site(cap, p["conv1"]) + site(cap, p["conv2"], residual=True)
+
+    total = site(levels[0]["pc"].capacity, params["stem"])
+    for i, stage in enumerate(params["enc"]):
+        cap = levels[i + 1]["pc"].capacity
+        total += site(cap, stage["down"])
+        total += sum(block(b, cap) for b in stage["blocks"])
+    for i, stage in enumerate(params["dec"]):
+        cap = levels[n_stages - 1 - i]["pc"].capacity
+        total += site(cap, stage["up"])
+        total += sum(block(b, cap) for b in stage["blocks"])
+    return total

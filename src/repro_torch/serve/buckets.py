@@ -117,6 +117,26 @@ def resolve_max_batch(spec, ladder: BucketLadder) -> tuple[int, dict]:
     return default, overrides
 
 
+def max_batch_from_occupancy(bucket_stats: dict, default: int =
+                             DEFAULT_MAX_BATCH, floor: int = 1) -> dict:
+    """Seed per-bucket max_batch overrides from serving telemetry.
+
+    `bucket_stats` is `ServeScheduler.stats()["buckets"]`; each bucket's
+    suggested width is its observed mean real scenes per micro-batch
+    (rounded up), clamped to [floor, default]: a bucket that mostly ran
+    dummy-filled stops waiting for a full wide batch, a busy bucket keeps
+    the full width.  Feed the result back as `ServeScheduler(max_batch=
+    {**overrides, "default": default})` or `BucketLadder(caps,
+    max_batch=...)`.
+    """
+    out = {}
+    for cap, b in bucket_stats.items():
+        seen = math.ceil(b["scenes"] / b["batches"]) if b["batches"] else \
+            default
+        out[int(cap)] = max(floor, min(default, seen))
+    return out
+
+
 def pad_scene(coords, mask, feats, capacity: int):
     """Pad one scene's (coords, mask, feats) rows up to `capacity` on the
     host: invalid rows (padding and masked rows) get SENTINEL coordinates

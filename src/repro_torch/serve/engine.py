@@ -5,14 +5,20 @@ and a digest-keyed mapping cache.
     bucket, level pyramid served from the mapping cache (keyed by the
     padded coordinates), forward, argmax, predictions sliced back to the
     caller's row count.
-  * `levels_for(coords, mask)` — the cached mapping pass alone.
+  * `segment_batch(coords, mask, feats)` — (B, N, ...) scenes served
+    through the engine's `serve.scheduler.ServeScheduler` (admitted,
+    grouped into fixed-shape micro-batches per bucket, reassembled in
+    submission order).
+  * `levels_for(coords, mask)` — the cached mapping pass alone; the
+    batched form gives the tuple of the scenes' cached pyramids.
 
 The default flow is `"cuda_fused"`, so `segment` runs the hand-written
 fused sparse-conv kernel on every conv (the reference's default is
 `"fod"`).  Where the reference jits and vmaps its entry points, these are
-eager calls.  Batched serving (`segment_batch`, the scheduler) and
-city-scale partitioning are not ported yet: they raise and name the
-ROADMAP item that brings them.
+eager calls: a micro-batch runs its scenes one after another through the
+code `segment` runs, so its labels are bit-identical to `segment`'s.
+City-scale partitioning (`segment(partition=...)`) is not ported yet: it
+raises and names the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -29,10 +35,8 @@ from repro_torch.models import minkunet as MU
 from repro_torch.models.params import ParamTree
 from repro_torch.serve import buckets as BK
 
-_BATCHED = ("batched serving (segment_batch, the ServeScheduler, "
-            "compile_stats) is not ported yet; see ROADMAP.md Queue A.7-A.8")
 _PARTITION = ("city-scale partitioning (segment(partition=...)) is not "
-              "ported yet; see ROADMAP.md Queue A.9")
+              "ported yet; see ROADMAP.md Queue A item 3")
 
 
 class PointCloudEngine:
@@ -42,12 +46,15 @@ class PointCloudEngine:
     (nested dicts/lists of tensors).  The weights move to `device`: None
     resolves to the first CUDA device and raises when there is none;
     `device="cpu"` opts into the plain PyTorch versions of the kernels.
+    `max_batch` / `mesh` / `fault_plan` / `obs` configure the scheduler
+    behind `segment_batch` (mesh="auto" serves on this one device).
     """
 
     def __init__(self, params_or_module, n_stages: int,
                  flow: str = "cuda_fused", device=None,
                  engine: Optional[str] = None, cache_entries: int = 32,
-                 ladder: Optional[BK.BucketLadder] = None):
+                 ladder: Optional[BK.BucketLadder] = None,
+                 max_batch=None, mesh="auto", fault_plan=None, obs=None):
         self.device = resolve_device(device)
         module = params_or_module if isinstance(params_or_module, ParamTree) \
             else MU.MinkUNet(params_or_module)
@@ -58,6 +65,17 @@ class PointCloudEngine:
         self.engine = engine
         self.n_stages = n_stages
         self.ladder = ladder if ladder is not None else BK.DEFAULT_LADDER
+        self._max_batch = max_batch
+        self._mesh = mesh
+        # chaos seam: a serve.faults.FaultPlan picked up by every scheduler
+        # built over this engine (None = nothing injected)
+        self.fault_plan = fault_plan
+        # observability bundle (repro_torch.obs.Observability) for the
+        # lazy default scheduler; None keeps it metrics-only
+        self.obs = obs
+        self._scheduler = None
+        # the distinct shapes each entry point has run (`compile_stats`)
+        self._shapes = {"build": set(), "apply": set(), "apply_batch": set()}
 
     @classmethod
     def factory(cls, params_or_module, n_stages: int, **kwargs):
@@ -70,7 +88,16 @@ class PointCloudEngine:
         return build
 
     def scheduler(self):
-        raise NotImplementedError(_BATCHED)
+        """The engine's lazily-built default `ServeScheduler` (the one
+        `segment_batch` serves through); build your own for another
+        max_batch / pipeline depth / assembly-cache bound / deadline
+        policy."""
+        if self._scheduler is None:
+            from repro_torch.serve.scheduler import ServeScheduler
+            kwargs = {} if self.obs is None else {"obs": self.obs}
+            self._scheduler = ServeScheduler(self, max_batch=self._max_batch,
+                                             mesh=self._mesh, **kwargs)
+        return self._scheduler
 
     # -- mapping ----------------------------------------------------------
 
@@ -86,22 +113,61 @@ class PointCloudEngine:
         mask = np.asarray(mask)
         if key is None:
             key = self.scene_key(coords, mask, bucket)
+        return self.session.maps_cache.get_by_key(
+            key, lambda: self._build(coords, mask))
 
-        def build():
-            pc = M.PointCloud(torch.from_numpy(coords).to(self.device),
-                              torch.from_numpy(mask).to(self.device), 1)
-            return MU.build_unet_maps(pc, self.n_stages, engine=self.engine)
+    def _build(self, coords: np.ndarray, mask: np.ndarray):
+        """The mapping pass over one padded scene, on the device."""
+        self._shapes["build"].add(coords.shape)
+        pc = M.PointCloud(torch.from_numpy(coords).to(self.device),
+                          torch.from_numpy(mask).to(self.device), 1)
+        return MU.build_unet_maps(pc, self.n_stages, engine=self.engine)
 
-        return self.session.maps_cache.get_by_key(key, build)
-
-    def levels_for(self, coords, mask, batched: bool = False):
-        """(level pyramid, cache_hit) for one geometry, built at the
-        scene's bucket capacity (as `segment` pads it)."""
-        if batched:
-            raise NotImplementedError(_BATCHED)
+    def _scene_levels(self, coords, mask):
+        """(levels, hit) for one raw scene: pad to its bucket, then the
+        cached build."""
         cap = self.ladder.bucket_for(np.asarray(coords).shape[0])
         c, m, _ = BK.pad_scene(coords, mask, None, cap)
         return self._levels_padded(c, m, cap)
+
+    def levels_for(self, coords, mask, batched: bool = False):
+        """(level pyramid, cache_hit) for one geometry, built at the
+        scene's bucket capacity (as `segment` pads it).  The batched form
+        takes (B, N, ...) scenes and gives the tuple of their pyramids,
+        each built and cached per scene, and a hit flag that is True only
+        when every scene hit."""
+        if not batched:
+            return self._scene_levels(coords, mask)
+        coords = np.asarray(coords)
+        mask = np.asarray(mask)
+        per = [self._scene_levels(coords[b], mask[b])
+               for b in range(coords.shape[0])]
+        return tuple(lv for lv, _ in per), all(hit for _, hit in per)
+
+    def _labels(self, levels, coords: torch.Tensor, mask: torch.Tensor,
+                feats: torch.Tensor) -> torch.Tensor:
+        """(cap,) int32 class ids of one padded scene on the device: the
+        forward over its pyramid, then argmax."""
+        pc = M.PointCloud(coords, mask, 1)
+        logits = MU.minkunet_apply(self.module, pc,
+                                   feats.to(torch.float32), flow=self.flow,
+                                   levels=levels)
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+
+    def _apply_batch(self, levels_b, coords_b: torch.Tensor,
+                     mask_b: torch.Tensor,
+                     feats_b: torch.Tensor) -> torch.Tensor:
+        """(B, cap) int32 class ids of a micro-batch: each scene through
+        `_labels`, one after another.  A dummy scene (levels None, fully
+        masked) is skipped; its row stays -1."""
+        self._shapes["apply_batch"].add(tuple(coords_b.shape[:2]))
+        out = torch.full(tuple(coords_b.shape[:2]), -1, dtype=torch.int32,
+                         device=coords_b.device)
+        for i, levels in enumerate(levels_b):
+            if levels is not None:
+                out[i] = self._labels(levels, coords_b[i], mask_b[i],
+                                      feats_b[i])
+        return out
 
     # -- serving entry points ---------------------------------------------
 
@@ -117,15 +183,68 @@ class PointCloudEngine:
         hit = None
         if levels is None:
             levels, hit = self._levels_padded(c, m, cap)
-        pc = M.PointCloud(torch.from_numpy(c).to(self.device),
-                          torch.from_numpy(m).to(self.device), 1)
-        feats_t = torch.from_numpy(np.ascontiguousarray(f, np.float32))
-        logits = MU.minkunet_apply(self.module, pc, feats_t.to(self.device),
-                                   flow=self.flow, levels=levels)
-        return torch.argmax(logits, dim=-1)[:n].to(torch.int32), hit
+        self._shapes["apply"].add(c.shape)
+        preds = self._labels(levels, torch.from_numpy(c).to(self.device),
+                             torch.from_numpy(m).to(self.device),
+                             torch.from_numpy(f).to(self.device))
+        return preds[:n], hit
 
-    def segment_batch(self, *args, **kwargs):
-        raise NotImplementedError(_BATCHED)
+    def segment_batch(self, coords, mask, feats, on_error: str = "raise",
+                      priority: int = 0):
+        """(B, N, 1+D) scenes -> ((B, N) int32 class ids on the host,
+        mapping_cache_hit).
+
+        Served through the internal `ServeScheduler`: each scene is
+        admitted, micro-batched with its bucket peers and executed, and
+        results are reassembled in submission order.  The hit flag is True
+        only when every scene's pyramid came from the mapping cache.
+
+        Per-scene failures (the scheduler's typed `ServeResult.error`:
+        rejected / shed / timeout / exec_failed) surface by `on_error`:
+
+          * "raise" (default) — raise `RuntimeError` naming every failed
+            scene index and its error;
+          * "partial" — return `(preds, hit, errors)` where `errors` is
+            {scene_index: ServeError} and failed scenes' rows are -1.
+
+        The scheduler is shared (`self.scheduler()`): scenes another
+        caller queued are flushed along with this batch, but their results
+        stay drainable — only this call's requests are taken.  `priority`
+        is forwarded to every scene's `submit`.
+        """
+        if on_error not in ("raise", "partial"):
+            raise ValueError(f"on_error must be 'raise' or 'partial', "
+                             f"got {on_error!r}")
+        coords = np.asarray(coords)
+        mask = np.asarray(mask)
+        feats = np.asarray(feats)
+        # stacked scenes share N: one ladder check up front, so an
+        # overflow raises before any scene is admitted
+        self.ladder.bucket_for(coords.shape[1])
+        sched = self.scheduler()
+        rids = [sched.submit(coords[b], feats[b], mask[b],
+                             priority=priority)
+                for b in range(coords.shape[0])]
+        sched.flush()
+        by_rid = sched.take(rids)
+        errors = {b: by_rid[rid].error for b, rid in enumerate(rids)
+                  if by_rid[rid].error is not None}
+        if errors and on_error == "raise":
+            detail = "; ".join(f"scene {b}: {err}"
+                               for b, err in sorted(errors.items()))
+            raise RuntimeError(
+                f"segment_batch: {len(errors)}/{len(rids)} scenes "
+                f"failed — {detail}")
+        n = coords.shape[1]
+        preds = np.stack([
+            by_rid[rid].preds if b not in errors
+            else np.full(n, -1, np.int32)
+            for b, rid in enumerate(rids)])
+        hit = all(by_rid[rid].mapping_hit for b, rid in enumerate(rids)
+                  if b not in errors)
+        if on_error == "partial":
+            return torch.from_numpy(preds), hit, errors
+        return torch.from_numpy(preds), hit
 
     # -- telemetry --------------------------------------------------------
 
@@ -133,4 +252,7 @@ class PointCloudEngine:
         return self.session.cache_stats()
 
     def compile_stats(self) -> dict:
-        raise NotImplementedError(_BATCHED)
+        """How many distinct shapes each entry point has run (the
+        reference counts its compiled programs): bounded by the ladder
+        buckets seen."""
+        return {name: len(shapes) for name, shapes in self._shapes.items()}

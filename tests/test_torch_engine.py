@@ -1,6 +1,7 @@
 """Port serving engine: `PointCloudEngine(device="cpu").segment` against
 the reference engine on a mini-MinkUNet scene through a small ladder, the
-mapping cache, and the device policy (no quiet CPU fallback)."""
+mapping cache, the device policy (no quiet CPU fallback), and the entry
+points that are not ported yet."""
 
 import jax
 import numpy as np
@@ -82,14 +83,19 @@ def test_device_policy_and_unported_entry_points(mini):
     eng = TEngine.factory(module, 2, device="cpu", flow="fod")()
     assert eng.device.type == "cpu" and eng.flow == "fod"
     coords, mask, feats = lidar_scene(6, 100, grid=10)
-    for call in (lambda: eng.segment_batch(coords[None], mask[None],
-                                           feats[None]),
-                 eng.scheduler, eng.compile_stats,
-                 lambda: eng.segment(coords, mask, feats, partition=True),
-                 lambda: eng.levels_for(coords, mask, batched=True),
+    for call in (lambda: eng.segment(coords, mask, feats, partition=True),
                  lambda: TEngine(module, 2, device="cpu", engine="v1")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
+    # the batched surface runs on the CPU
+    preds, hit = eng.segment_batch(coords[None], mask[None], feats[None])
+    assert preds.shape == (1, 100) and hit is False
+    want, _ = eng.segment(coords, mask, feats)
+    np.testing.assert_array_equal(preds[0].numpy(), want.numpy())
+    assert eng.scheduler() is eng.scheduler()
+    levels, hit = eng.levels_for(coords[None], mask[None], batched=True)
+    assert len(levels) == 1 and hit
+    assert eng.compile_stats() == {"build": 1, "apply": 1, "apply_batch": 1}
 
 
 def test_bucket_padding_keeps_valid_rows_and_precision_is_f32(mini):
