@@ -78,6 +78,33 @@ Phases (any failure exits non-zero; none catches its own):
      result) and p50/p95 request latency (from stats(), and exact from the
      results).  With `--profile`, a cold pass over a fresh engine and a
      replay pass run under torch.profiler (device busy share, host ops).
+  4c. router: `ServeRouter(PointCloudEngine.factory(module, 4,
+     flow="cuda_fused"), 2, max_batch=4, pipeline_depth=2)` serves the same
+     12-scene stream (two engines on the one card, each worker thread
+     dispatching through its own scheduler).  Every result must be ok with
+     labels equal to `segment` on every row; each worker's routed count
+     must equal what `router.preview` gave for the stream; launch counts,
+     zeroed just before and read just after: 41 tensor-core
+     `spconv_fod_fused` launches per scene, none on FMA; stats() keys equal
+     `ROUTER_STATS_KEYS` / `ROUTER_FAULT_KEYS`, no typed error.  Then a
+     router over the same, now warm, engines with a tight `LivenessPolicy`
+     and `FaultPlan(kill_workers={w: 2})`, w the worker the stream loads
+     most: failovers 1, replayed >= 1, the worker dead, labels still equal,
+     no typed error.  Scenes/s of both passes printed (not gated).
+  4d. partition: on an engine with tracing on, `segment(*scene A,
+     partition=PartitionPolicy(force=True))` must come in 3 chunks and
+     `city_scene(21, 150000, extent=2452)` (above the 65536 top bucket:
+     a plain `segment` must raise "exceeds the bucket ladder") in 5 through
+     `partition="auto"`; each with no chunk above 65536 points, no chunk
+     error, 41 tensor-core launches per chunk (counts zeroed just before,
+     read just after) and -1 on masked rows, and its labels on valid rows
+     equal to one monolithic forward of the same module except where that
+     forward's top-2 gap is below TOL (the oversized scene whole through
+     an engine whose ladder reaches 262144); the differing rows are
+     counted.  A repeat must hit the mapping cache in every chunk and give
+     equal labels.  The plan's host ms, the chunks' wall ms (both from the
+     partition's trace), halo fractions and the monolithic forward's ms
+     are printed.
   5. point kernels: one plain full-width PointNet++(s) forward (13
      classes, B = 16 clouds of N = 4096 points from `dense_xyz_batch`, the
      last cloud masked to 3000 valid points) and one plain full-width
@@ -121,7 +148,10 @@ Phases (any failure exits non-zero; none catches its own):
   8. LM kernels: full-width granite-moe-1b-a400m (the repo's config:
      24 layers, d_model 1024, 16 / 8 heads of 64, 32 experts top-8, vocab
      49155) with random weights from torch.Generator("cuda").manual_seed(0)
-     in the reference's init.  One plain bf16 prefill of 8 x 512 prompt
+     in the reference's init.  First, one decode step of an attention
+     layer at those widths with a 128-token window over a 1024-slot plain
+     cache (the masked path; no kernel) at float32 on the card must agree
+     with the same call on the CPU within 1e-5 x max|plain|.  One plain bf16 prefill of 8 x 512 prompt
      tokens (`np.random.default_rng(0)`) and 8 plain decode steps record
      the operands of layer 0's and layer 23's flash_attention, their three
      grouped_matmul calls (w_in, w_gate, w_out) and two flash_decode calls.
@@ -199,6 +229,14 @@ SERVE_STREAM = (  # phase 4b, in submission order: buckets 65536 / 32768 / 16384
     (19, 15000), (17, 30000), (14, 35000), SCENE_A, SCENE_B, SCENE_A)
 SERVE_BATCH = (SCENE_A, (20, 50000), (21, 50000), (22, 50000))  # segment_batch
 SERVE_MAX_BATCH = 4
+ROUTER_WORKERS = 2         # phase 4c: workers of the ServeRouter, one card
+ROUTER_KILL_STEP = 2       # the killed worker dies on its third request
+OVERSIZED = (21, 150000, 2452)  # city_scene(seed, n_points, extent), phase 4d:
+                           # above the 65536 top bucket, a quarter of the
+                           # default density (the default-density scene's halo
+                           # outgrows the ladder: plan_partition refuses it)
+MONO_TOP = 262144          # ladder top of the engine that runs it whole
+FORCED_CHUNKS, AUTO_CHUNKS = 3, 5  # chunks of scene A forced, of OVERSIZED
 N_STAGES = 4
 REPS = 10
 NAMED = {  # the shapes the kernel phase must cover, by site
@@ -491,11 +529,11 @@ def check_labels(label, got, want, valid):
                              "beyond the tolerance")
 
 
-def check_vs_fod(label, preds, logits, valid, quiet=False):
-    """MinkUNet labels against the plain "fod" forward's `logits`: class
-    ids in range on every row, and equal to the plain argmax on `valid`
-    rows except where the plain top-2 gap is below TOL.  Returns (rows
-    that differ, of them near ties)."""
+def check_vs_fod(label, preds, logits, valid, quiet=False, against="fod"):
+    """MinkUNet labels against the `logits` of another forward (by default
+    the plain "fod" one): class ids in range on every row, and equal to
+    its argmax on `valid` rows except where its top-2 gap is below TOL.
+    Returns (rows that differ, of them near ties)."""
     n_classes = logits.shape[1]
     if preds.shape != logits.shape[:1] or int(preds.min()) < 0 \
             or int(preds.max()) >= n_classes:
@@ -505,18 +543,19 @@ def check_vs_fod(label, preds, logits, valid, quiet=False):
     diff = (preds != logits.argmax(-1)) & valid
     close = diff & (gap < TOL)
     if not quiet:
-        print(f"labels {label} vs fod: {int(diff.sum())} of "
+        print(f"labels {label} vs {against}: {int(diff.sum())} of "
               f"{int(valid.sum())} valid rows differ, {int(close.sum())} of "
               f"them within a top-2 gap < {TOL:g}")
     if int((diff & ~close).sum()):
-        raise AssertionError(f"{label}: labels differ from fod beyond the "
-                             "tolerance")
+        raise AssertionError(f"{label}: labels differ from {against} beyond "
+                             "the tolerance")
     return int(diff.sum()), int(close.sum())
 
 
-def fod_logits_of(probe, scene):
-    """Logits of the plain ("fod") full forward of one raw scene through
-    the engine `probe` (flow "fod"), on the scene's rows."""
+def logits_of(probe, scene, flow="fod"):
+    """Logits of the full forward (flow `flow`, by default the plain "fod")
+    of one raw scene through the engine `probe`'s ladder and mapping
+    cache, on the scene's rows."""
     import torch
     from repro_torch.core import mapping as M
     from repro_torch.models import minkunet as MU
@@ -530,7 +569,7 @@ def fod_logits_of(probe, scene):
                       1)
     logits = MU.minkunet_apply(probe.module, pc,
                                torch.from_numpy(f).to(dev).float(),
-                               flow="fod", levels=levels)
+                               flow=flow, levels=levels)
     return logits[:coords.shape[0]]
 
 
@@ -603,6 +642,44 @@ def level_of(site: str) -> int:
     return i + 1 if site.startswith("enc") else N_STAGES - 1 - i
 
 
+def serve_pass(sch, scenes: dict, stream, label: str, got: list) -> dict:
+    """One pass of `stream` through `sch` (a ServeScheduler or a
+    ServeRouter): a producer that polls after each submit, then flush()
+    and drain().  Every result must be ok; (label, scene, labels) go to
+    `got`.  Returns the pass's wall ms, scenes/s and exact p50/p95."""
+    import numpy as np
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids, out = [], []
+    for key in stream:         # a producer that takes what is ready as it goes
+        rids.append(sch.submit(scenes[key][0], scenes[key][2],
+                               scenes[key][1]))
+        out += sch.poll()
+    sch.flush()
+    out += sch.drain()
+    wall = time.perf_counter() - t0
+    by_rid = {r.rid: r for r in out}
+    if sorted(by_rid) != sorted(rids):
+        raise AssertionError(f"{label}: results for {sorted(by_rid)}, "
+                             f"submitted {sorted(rids)}")
+    lat = []
+    for rid, key in zip(rids, stream):
+        r = by_rid[rid]
+        if not r.ok:
+            raise AssertionError(f"{label}: scene {key} failed: {r.error}")
+        got.append((label, key, r.preds))
+        lat.append(r.latency_s * 1e3)
+    print(f"{label}: {len(rids)} scenes in {wall * 1e3:.2f} ms = "
+          f"{len(rids) / wall:.2f} scenes/s; request latency exact p50 "
+          f"{np.percentile(lat, 50):.2f} ms, p95 "
+          f"{np.percentile(lat, 95):.2f} ms; completion order "
+          f"{[r.rid for r in out]}")
+    return {"wall_ms": wall * 1e3, "scenes_per_s": len(rids) / wall,
+            "p50_ms": float(np.percentile(lat, 50)),
+            "p95_ms": float(np.percentile(lat, 95))}
+
+
 def serving_phase(module, n_stages: int, scenes: dict, segment_engine,
                   stream=SERVE_STREAM, batch=SERVE_BATCH,
                   with_profile: bool = False) -> dict:
@@ -636,7 +713,7 @@ def serving_phase(module, n_stages: int, scenes: dict, segment_engine,
                 coords, mask, feats = scenes[key]
                 want[key] = (segment_engine.segment(
                     coords, mask, feats)[0].cpu().numpy(),
-                    fod_logits_of(plain, scenes[key]).cpu())
+                    logits_of(plain, scenes[key]).cpu())
             seg, logits = want[key]
             d, c = check_vs_fod(f"{label} scene {key}",
                                 torch.from_numpy(preds).long(), logits,
@@ -653,36 +730,7 @@ def serving_phase(module, n_stages: int, scenes: dict, segment_engine,
         got.clear()
 
     def run(sch, label):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        rids, out = [], []
-        for key in stream:     # a producer that takes what is ready as it goes
-            rids.append(sch.submit(scenes[key][0], scenes[key][2],
-                                   scenes[key][1]))
-            out += sch.poll()
-        sch.flush()
-        out += sch.drain()
-        wall = time.perf_counter() - t0
-        by_rid = {r.rid: r for r in out}
-        if sorted(by_rid) != sorted(rids):
-            raise AssertionError(f"{label}: results for {sorted(by_rid)}, "
-                                 f"submitted {sorted(rids)}")
-        lat = []
-        for rid, key in zip(rids, stream):
-            r = by_rid[rid]
-            if not r.ok:
-                raise AssertionError(f"{label}: scene {key} failed: "
-                                     f"{r.error}")
-            got.append((label, key, r.preds))
-            lat.append(r.latency_s * 1e3)
-        print(f"{label}: {len(rids)} scenes in {wall * 1e3:.2f} ms = "
-              f"{len(rids) / wall:.2f} scenes/s; request latency exact p50 "
-              f"{np.percentile(lat, 50):.2f} ms, p95 "
-              f"{np.percentile(lat, 95):.2f} ms; completion order "
-              f"{[r.rid for r in out]}")
-        return {"wall_ms": wall * 1e3, "scenes_per_s": len(rids) / wall,
-                "p50_ms": float(np.percentile(lat, 50)),
-                "p95_ms": float(np.percentile(lat, 95))}
+        return serve_pass(sch, scenes, stream, label, got)
 
     def clean(st, label, failed_dispatches=0):
         ft = st["faults"]
@@ -796,6 +844,235 @@ def serving_phase(module, n_stages: int, scenes: dict, segment_engine,
     return {"cold": cold, "warm": warm, "launches": launches,
             "scenes": ran, "p50_ms": q["p50"] * 1e3,
             "p95_ms": q["p95"] * 1e3}
+
+
+def router_phase(module, n_stages: int, scenes: dict, segment_engine,
+                 stream=SERVE_STREAM) -> dict:
+    """Phase 4c: `stream` through a ServeRouter of ROUTER_WORKERS workers
+    (engines from `PointCloudEngine.factory`, flow "cuda_fused", one card),
+    then once more through a router over the same, now warm, engines in
+    which one worker is killed; labels held to `segment_engine.segment`.
+    Returns its numbers and launch counts."""
+    import numpy as np
+    from repro_torch.kernels.spconv import spconv as K
+    from repro_torch.obs import metrics as MX
+    from repro_torch.serve.engine import PointCloudEngine
+    from repro_torch.serve.faults import FaultPlan
+    from repro_torch.serve.router import LivenessPolicy, ServeRouter
+
+    n_sites = len(site_names(module.tree()))
+    got, want = [], {}
+
+    def check_labels_equal(label):
+        for _, key, preds in got:
+            if key not in want:
+                coords, mask, feats = scenes[key]
+                want[key] = segment_engine.segment(
+                    coords, mask, feats)[0].cpu().numpy()
+            if not np.array_equal(preds, want[key]):
+                diff = int((preds != want[key]).sum())
+                raise AssertionError(f"{label}: scene {key}: {diff} labels "
+                                     "differ from segment")
+        print(f"{label}: {len(got)} routed scenes equal to segment of the "
+              "same scene on every row")
+        got.clear()
+
+    def clean(st, label, failovers=0):
+        ft = st["faults"]
+        bad = {k: ft[k] for k in ("rejected", "shed", "timeout",
+                                  "exec_failed") if ft[k]}
+        if bad or ft["failovers"] != failovers:
+            raise AssertionError(f"{label}: faults {ft}")
+
+    build = PointCloudEngine.factory(module, n_stages, flow="cuda_fused")
+    engines = []               # the workers' engines, kept for the kill pass
+
+    def factory():
+        engines.append(build())
+        return engines[-1]
+
+    router = ServeRouter(factory, ROUTER_WORKERS, max_batch=SERVE_MAX_BATCH,
+                         pipeline_depth=2)
+    previews = [router.preview(scenes[k][0], scenes[k][1]) for k in stream]
+    K.reset_launch_counts()
+    cold = serve_pass(router, scenes, stream, "router stream (cold)", got)
+    launches = dict(K.LAUNCHES)
+    st = router.stats()
+    router.close()
+    check_labels_equal("router stream")
+    routed = {name: w["routed"] for name, w in st["workers"].items()}
+    print(f"router: previews {previews}; routed {routed}")
+    if routed != {name: previews.count(name) for name in routed}:
+        raise AssertionError(f"routed {routed} != previews {previews}")
+    ran = sum(b["scenes"] for w in st["workers"].values()
+              for b in w["scheduler"]["buckets"].values())
+    print(f"router launches over {ran} scheduled scenes: {launches}")
+    if ran != len(stream) or \
+            launches["spconv_fod_fused"] != n_sites * ran or \
+            launches["spconv_fod_fused_tc"] != n_sites * ran or \
+            launches["spconv_fod_fused_fma"] or launches["spconv_fod"]:
+        raise AssertionError(f"router launches {launches}: expected "
+                             f"{n_sites} x {len(stream)} fused, all on the "
+                             "tensor cores")
+    if set(st) != MX.ROUTER_STATS_KEYS or \
+            set(st["faults"]) != MX.ROUTER_FAULT_KEYS:
+        raise AssertionError(f"router stats() keys {sorted(st)}, faults "
+                             f"{sorted(st['faults'])}")
+    clean(st, "router stream")
+
+    # the same engines, warm, under a tight liveness policy: the worker
+    # that the stream loads most dies on its third request
+    victim = max(routed, key=routed.get)
+    if routed[victim] <= ROUTER_KILL_STEP:
+        raise AssertionError(f"no worker takes {ROUTER_KILL_STEP + 1} "
+                             f"scenes: {routed}")
+    ordinal = st["workers"][victim]["ordinal"]
+    plan = FaultPlan(kill_workers={ordinal: ROUTER_KILL_STEP})
+    warm = iter(engines)
+    faulty = ServeRouter(lambda: next(warm), ROUTER_WORKERS,
+                         max_batch=SERVE_MAX_BATCH, pipeline_depth=2,
+                         fault_plan=plan)
+    faulty.liveness = LivenessPolicy(beat_s=0.05, miss_beats=100)
+    killed = serve_pass(faulty, scenes, stream,
+                        f"router stream (worker {victim} killed)", got)
+    fst = faulty.stats()
+    faulty.close()
+    check_labels_equal("router stream, one worker killed")
+    clean(fst, "worker kill", failovers=1)
+    if fst["faults"]["replayed"] < 1 or \
+            plan.stats()["workers_killed"] != 1 or \
+            fst["workers"][victim]["state"] != "dead":
+        raise AssertionError(f"worker kill: faults {fst['faults']}, plan "
+                             f"{plan.stats()}")
+    print(f"worker kill: {victim} dead ({fst['workers'][victim]['reason']}),"
+          f" faults {fst['faults']}")
+    return {"cold": cold, "killed": killed, "launches": launches,
+            "scenes": ran, "replayed": fst["faults"]["replayed"],
+            "recovery_s": fst["faults"]["recovery_s"]}
+
+
+def partition_phase(module, n_stages: int, scene, oversized,
+                    mono_ladder=None, n_forced=FORCED_CHUNKS,
+                    n_auto=AUTO_CHUNKS) -> dict:
+    """Phase 4d: `segment(partition=)` on `scene` forced into chunks, and
+    on `oversized` (above the ladder) through "auto", on an engine with
+    flow "cuda_fused" and tracing on; each held to one monolithic forward
+    (an engine whose ladder is `mono_ladder` runs `oversized` whole) by the
+    near-tie rule.  Returns its numbers and launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.spconv import spconv as K
+    from repro_torch.obs import Observability
+    from repro_torch.partition import PartitionPolicy
+    from repro_torch.serve.buckets import geometric_ladder
+    from repro_torch.serve.engine import PointCloudEngine
+
+    n_sites = len(site_names(module.tree()))
+    engine = PointCloudEngine(module, n_stages, flow="cuda_fused",
+                              obs=Observability.enabled())
+    top = engine.ladder.capacities[-1]
+    out = {"launches": {}, "chunks": 0}
+
+    def partitioned(label, sc, policy, n_chunks):
+        coords, mask, feats = sc
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        preds, hit = engine.segment(coords, mask, feats, partition=policy)
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)
+        st = engine.last_partition_stats
+        trace = [t for t in engine.obs.tracer.finished()
+                 if t.tid.startswith("partition:")][-1]
+        (fan,), (stitch,) = trace.find("chunk_fanout"), trace.find("stitch")
+        plan_ms = (trace.spans[trace.root_id].t_start - t0) * 1e3
+        chunks_ms = (stitch.t_start - fan.t_start) * 1e3
+        print(f"{label}: {st['n_chunks']} chunks of {st['chunk_points']} "
+              f"points (budget {st['budget']}, halo fraction "
+              f"{st['halo_fraction']:.4f}), hit={hit}; plan on the host "
+              f"{plan_ms:.2f} ms, chunks served {chunks_ms:.2f} ms; "
+              f"launches {launches}")
+        preds = preds.cpu()
+        if st["n_chunks"] != n_chunks or st["chunk_errors"] or \
+                st["max_chunk_points"] > top or \
+                preds.shape != (coords.shape[0],) or \
+                bool((preds[torch.from_numpy(~mask)] != -1).any()):
+            raise AssertionError(f"{label}: stats {st}")
+        if launches["spconv_fod_fused"] != n_sites * n_chunks or \
+                launches["spconv_fod_fused_tc"] != n_sites * n_chunks or \
+                launches["spconv_fod_fused_fma"] or launches["spconv_fod"]:
+            raise AssertionError(f"{label}: launches {launches}, expected "
+                                 f"{n_sites} x {n_chunks} fused, all on the "
+                                 "tensor cores")
+        for k, v in launches.items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+        out["chunks"] += n_chunks
+        return preds, hit, st, plan_ms, chunks_ms
+
+    def held_to_whole(label, preds, probe, sc):
+        coords, mask, _ = sc
+        probe.levels_for(coords, mask)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = logits_of(probe, sc, flow=probe.flow)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        whole, _ = probe.segment(coords, mask, sc[2])
+        if not torch.equal(whole.cpu().long(), logits.argmax(-1).cpu()):
+            raise AssertionError(f"{label}: segment != argmax of its forward")
+        valid = torch.from_numpy(mask)
+        logits = logits.cpu()
+        # masked rows are -1 (checked in `partitioned`); the rule reads the
+        # valid ones
+        preds = torch.where(valid, preds.long(), logits.argmax(-1))
+        d, near = check_vs_fod(label, preds, logits, valid,
+                               against="the monolithic forward")
+        return ms, d, near
+
+    forced = partitioned(f"scene {SCENE_A} forced into chunks", scene,
+                         PartitionPolicy(force=True), n_forced)
+    d_a = held_to_whole("partitioned scene A", forced[0], engine, scene)
+
+    coords, mask, feats = oversized
+    try:
+        engine.segment(coords, mask, feats)
+    except ValueError as e:
+        if "exceeds the bucket ladder" not in str(e):
+            raise
+        print(f"oversized scene ({coords.shape[0]} rows) without partition: "
+              f"{e}")
+    else:
+        raise AssertionError("an oversized scene was served whole")
+    auto = partitioned("oversized scene, partition='auto'", oversized,
+                       "auto", n_auto)
+    if auto[1] is not False:
+        raise AssertionError(f"oversized scene, first pass: hit={auto[1]}")
+    mono = PointCloudEngine(module, n_stages, flow="cuda_fused",
+                            ladder=mono_ladder or geometric_ladder(128,
+                                                                   MONO_TOP))
+    K.reset_launch_counts()
+    mono_ms, d_o, near_o = held_to_whole("partitioned oversized scene",
+                                         auto[0], mono, oversized)
+    print(f"monolithic forward of the oversized scene at the "
+          f"{mono.ladder.bucket_for(coords.shape[0])} bucket: {mono_ms:.2f} ms"
+          f" (mapping cached), launches {dict(K.LAUNCHES)}")
+    again = partitioned("oversized scene again", oversized, "auto", n_auto)
+    if again[1] is not True or not torch.equal(again[0], auto[0]):
+        raise AssertionError(f"oversized scene repeat: hit={again[1]}, "
+                             "labels equal: "
+                             f"{torch.equal(again[0], auto[0])}")
+    out.update({
+        "forced": {"n_chunks": forced[2]["n_chunks"],
+                   "halo_fraction": forced[2]["halo_fraction"],
+                   "plan_ms": forced[3], "chunks_ms": forced[4],
+                   "mono_ms": d_a[0], "differ": d_a[1], "near": d_a[2]},
+        "oversized": {"n_chunks": auto[2]["n_chunks"],
+                      "chunk_points": auto[2]["chunk_points"],
+                      "halo_fraction": auto[2]["halo_fraction"],
+                      "plan_ms": auto[3], "chunks_ms": auto[4],
+                      "hit_plan_ms": again[3], "hit_chunks_ms": again[4],
+                      "mono_ms": mono_ms, "differ": d_o, "near": near_o}})
+    return out
 
 
 def point_phases(dev, mem_rate: float, flop_rate: float, tf32_rate: float,
@@ -1277,6 +1554,43 @@ def capacity_drops(routes, n_experts: int, n_layers: int,
     return drops
 
 
+def windowed_decode_check(dev, cfg):
+    """One decode step of an attention layer at the config's widths, f32,
+    with a window shorter than its plain cache (the valid slots are no
+    prefix: the masked path, as in the reference): on the card within
+    REL_TOL * max|plain| of the same call on the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.models import layers as TL
+    s_cache, window = 1024, 128
+    rng = np.random.default_rng(5)
+    d, h, hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    hd = cfg.resolved_head_dim
+    shapes = {"wq": (d, h * hd), "wk": (d, hkv * hd), "wv": (d, hkv * hd),
+              "wo": (h * hd, d)}
+    ws = {n: rng.normal(size=sh) / np.sqrt(sh[0]) for n, sh in shapes.items()}
+    x = rng.normal(size=(2, 1, d))
+    kv = rng.normal(size=(2, 2, s_cache, hkv, hd))
+    pos = np.array([window // 2, s_cache - 100])
+
+    def run(device):
+        def t(a, dtype=torch.float32):
+            return torch.tensor(a, dtype=dtype, device=device)
+        out, _ = TL.attention_apply(
+            {n: {"w": t(w)} for n, w in ws.items()}, cfg, t(x),
+            t(pos[:, None], torch.int64), layer_window=window, mode="decode",
+            cache=TL.KVCache(t(kv[0]), t(kv[1])),
+            cache_pos=t(pos, torch.int64))
+        return out.cpu()
+    got, want = run(dev), run("cpu")
+    ok, err, scale = rel_close(got, want)
+    print(f"windowed decode (window {window} < {s_cache}-slot cache, f32, "
+          f"masked path) on the card vs the CPU: max abs err {err:.2e}, "
+          f"max|plain| {scale:.3g}, tol {REL_TOL:g} x max|plain|")
+    if not ok:
+        raise AssertionError("windowed decode differs from the CPU call")
+
+
 def lm_phases(dev, mem_rate: float, bf16_rate: float, with_profile: bool):
     """Phases 8-10 (see the module docstring).  Returns the kernels-line
     entries of the three LM kernels."""
@@ -1311,6 +1625,7 @@ def lm_phases(dev, mem_rate: float, bf16_rate: float, with_profile: bool):
           f"{cfg.n_experts} experts top-{cfg.topk}, vocab {cfg.vocab_size}), "
           f"{n_params / 1e9:.3f} B parameters from torch.Generator(cuda)"
           f".manual_seed(0); prompts {LM_BATCH} x {LM_PROMPT}")
+    windowed_decode_check(dev, cfg)
 
     # 8. kernel phase: record the kernels' operands in one plain bf16
     # prefill and LM_PLAIN_STEPS plain decode steps
@@ -2293,6 +2608,13 @@ def main(argv) -> int:
     print(smi)
     serving = serving_phase(module, N_STAGES, scenes, engine,
                             with_profile="--profile" in argv)
+    # 4c. the router; 4d. partitioning
+    print(smi_line())
+    routing = router_phase(module, N_STAGES, scenes, engine)
+    print(smi_line())
+    partition = partition_phase(module, N_STAGES, scenes[SCENE_A],
+                                city_scene(OVERSIZED[0], OVERSIZED[1],
+                                           extent=OVERSIZED[2]))
 
     point_launches, mlp = point_phases(dev, mem_rate, flop_rate, tf32_rate,
                                        "--profile" in argv)
@@ -2352,7 +2674,11 @@ def main(argv) -> int:
          "library_ms": None, "gemm_only_ms": totals["gemm"], "plan": plans,
          "per": "one forward: sum over its 41 conv sites",
          "serve_launches": serving["launches"]["spconv_fod_fused"],
-         "serve_scenes": serving["scenes"]},
+         "serve_scenes": serving["scenes"],
+         "router_launches": routing["launches"]["spconv_fod_fused"],
+         "router_scenes": routing["scenes"],
+         "partition_launches": partition["launches"]["spconv_fod_fused"],
+         "partition_chunks": partition["chunks"]},
         {"name": "spconv_fod", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/spconv/spconv.py:82",
          "launches": launches["spconv_fod"],

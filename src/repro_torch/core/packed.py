@@ -99,3 +99,77 @@ def searchsorted(sorted_keys: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """side='left' positions of query keys (any shape) in an ascending
     int64 key array: the reference's `searchsorted_pair`, on one word."""
     return torch.searchsorted(sorted_keys, q.contiguous(), side="left")
+
+
+# -- host-side (numpy) key helpers ------------------------------------------
+#
+# The partition planner (repro_torch.partition) ranks and range-splits
+# city-scale clouds on the host, where shapes are dynamic and a device
+# round trip per binary search would dominate.  These mirror the packing
+# above in one uint64 word, bit for bit with the reference's host helpers:
+# a valid key is below 2^62, so unsigned uint64 order is the logical key
+# order, and the sentinel is KEY_SENTINEL (2^63 - 1) as a uint64.
+
+KEY64_BITS = BATCH_BITS + 3 * SPATIAL_BITS          # 62
+KEY64_SENTINEL = np.uint64(KEY_SENTINEL)
+
+
+def compose_key64(hi, lo) -> np.ndarray:
+    """(hi int32, lo uint32) word pairs -> one uint64 key, order-preserving
+    (valid hi is never negative)."""
+    return ((np.asarray(hi).astype(np.int64).astype(np.uint64)
+             << np.uint64(32))
+            | np.asarray(lo, np.uint32).astype(np.uint64))
+
+
+def pack_coords_host(coords, mask=None) -> np.ndarray:
+    """Host mirror of `pack_coords`: (..., 4) integer coords -> (...,)
+    uint64 keys with out-of-budget / masked rows saturated to
+    KEY64_SENTINEL."""
+    coords = np.asarray(coords)
+    b = coords[..., 0].astype(np.int64)
+    x = coords[..., 1].astype(np.int64)
+    y = coords[..., 2].astype(np.int64)
+    z = coords[..., 3].astype(np.int64)
+    ok = (b >= 0) & (b <= BATCH_MAX)
+    for c in (x, y, z):
+        ok = ok & (c >= COORD_MIN) & (c <= COORD_MAX)
+    if mask is not None:
+        ok = ok & np.asarray(mask, bool)
+    key = ((b << (3 * SPATIAL_BITS))
+           | ((x + BIAS) << (2 * SPATIAL_BITS))
+           | ((y + BIAS) << SPATIAL_BITS)
+           | (z + BIAS)).astype(np.uint64)
+    return np.where(ok, key, KEY64_SENTINEL)
+
+
+def unpack_key64(keys) -> np.ndarray:
+    """Inverse of `pack_coords_host`: (...,) uint64 -> (..., 4) int32
+    coords; sentinel keys unpack to all-COORD_SENTINEL rows."""
+    keys = np.asarray(keys, np.uint64)
+    k = keys.astype(np.int64)
+    b = k >> (3 * SPATIAL_BITS)
+    x = ((k >> (2 * SPATIAL_BITS)) & _FIELD) - BIAS
+    y = ((k >> SPATIAL_BITS) & _FIELD) - BIAS
+    z = (k & _FIELD) - BIAS
+    coords = np.stack([b, x, y, z], axis=-1).astype(np.int32)
+    return np.where((keys == KEY64_SENTINEL)[..., None],
+                    np.int32(COORD_SENTINEL), coords)
+
+
+def quantize_key64(keys, stride: int) -> np.ndarray:
+    """Host mirror of `quantize_keys` on uint64 keys: clear the low
+    log2(stride) bits of each 16-bit spatial field; sentinels preserved."""
+    if stride == 1:
+        return np.asarray(keys, np.uint64)
+    k = int(np.log2(stride))
+    if 2 ** k != stride:
+        raise ValueError(f"stride must be a power of two, got {stride}")
+    if k > SPATIAL_BITS - 1:
+        raise ValueError(f"stride {stride} exceeds the per-axis bit budget")
+    low = stride - 1
+    clear = np.uint64((low << (2 * SPATIAL_BITS)) | (low << SPATIAL_BITS)
+                      | low)
+    keys = np.asarray(keys, np.uint64)
+    q = keys & ~clear
+    return np.where(keys == KEY64_SENTINEL, KEY64_SENTINEL, q)

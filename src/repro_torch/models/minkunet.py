@@ -97,6 +97,20 @@ def minkunet_init(generator: torch.Generator, c_in: int = 4,
     return MinkUNet(params)
 
 
+def halo_spec(params):
+    """Receptive-field spec of this UNet for the partition planner
+    (`repro_torch.partition.halo`): one stem dilation at level 0, two
+    submanifold dilations per residual block at every level each stage
+    touches (encoder and decoder), with the stride-2 down / transposed
+    convs as the level transitions.  `params` is a `MinkUNet` or its
+    parameter tree."""
+    from repro_torch.partition.halo import HaloSpec
+    tree = params.tree() if isinstance(params, ParamTree) else params
+    n_stages = len(tree["enc"])
+    blocks = len(tree["enc"][0]["blocks"]) if n_stages else 0
+    return HaloSpec.uniform(n_stages, blocks)
+
+
 def mini_minkunet_init(generator: torch.Generator, c_in: int = 4,
                        n_classes: int = 13) -> MinkUNet:
     """The paper's co-designed shallow/narrow MinkowskiUNet (Fig. 16)."""

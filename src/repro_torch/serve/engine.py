@@ -17,8 +17,9 @@ fused sparse-conv kernel on every conv (the reference's default is
 `"fod"`).  Where the reference jits and vmaps its entry points, these are
 eager calls: a micro-batch runs its scenes one after another through the
 code `segment` runs, so its labels are bit-identical to `segment`'s.
-City-scale partitioning (`segment(partition=...)`) is not ported yet: it
-raises and names the ROADMAP item that brings it.
+`segment(partition=...)` opens the city-scale path: the scene is cut into
+halo'd chunks on the host (`repro_torch.partition`), each served through
+the engine's scheduler as an ordinary scene, and the labels stitched back.
 """
 
 from __future__ import annotations
@@ -34,9 +35,6 @@ from repro_torch.device import resolve_device
 from repro_torch.models import minkunet as MU
 from repro_torch.models.params import ParamTree
 from repro_torch.serve import buckets as BK
-
-_PARTITION = ("city-scale partitioning (segment(partition=...)) is not "
-              "ported yet; see ROADMAP.md Queue A item 3")
 
 
 class PointCloudEngine:
@@ -74,6 +72,9 @@ class PointCloudEngine:
         # lazy default scheduler; None keeps it metrics-only
         self.obs = obs
         self._scheduler = None
+        # partition telemetry: trace ids and the last plan's stats
+        self._n_partitions = 0
+        self.last_partition_stats = None
         # the distinct shapes each entry point has run (`compile_stats`)
         self._shapes = {"build": set(), "apply": set(), "apply_batch": set()}
 
@@ -174,10 +175,27 @@ class PointCloudEngine:
     def segment(self, coords, mask, feats, levels=None, partition=None):
         """One scene -> (per-point class ids on the engine's device,
         mapping_cache_hit).  Pass `levels` (from `levels_for`) to skip the
-        cache lookup; the hit flag is then None."""
-        if partition is not None:
-            raise NotImplementedError(_PARTITION)
+        cache lookup; the hit flag is then None.
+
+        `partition` opens the city-scale path: True / "auto" (the default
+        policy) or a `repro_torch.partition.PartitionPolicy`.  A scene too
+        big for the ladder, which the plain path rejects, is then
+        octree-chunked over its packed keys with exact receptive-field
+        halos, each chunk served through the engine's scheduler as an
+        ordinary scene, and the labels stitched back into the caller's row
+        order (halo rows dropped; rows outside every chunk, i.e. masked
+        rows, come back as -1).  A policy with `force=True` partitions a
+        scene that fits too.  The hit flag is True only when every chunk's
+        pyramid came from the mapping cache.
+        """
         n = np.asarray(coords).shape[0]
+        if partition is not None:
+            from repro_torch.partition import PartitionPolicy
+            policy = PartitionPolicy() if partition in (True, "auto") \
+                else partition
+            if policy.force or not self.ladder.fits(n):
+                return self._segment_partitioned(coords, mask, feats,
+                                                 policy)
         cap = self.ladder.bucket_for(n)
         c, m, f = BK.pad_scene(coords, mask, feats, cap)
         hit = None
@@ -188,6 +206,35 @@ class PointCloudEngine:
                              torch.from_numpy(m).to(self.device),
                              torch.from_numpy(f).to(self.device))
         return preds[:n], hit
+
+    def _segment_partitioned(self, coords, mask, feats, policy):
+        """Chunk-stream one scene through the scheduler and stitch (see
+        `segment(partition=)`).  The plan's telemetry lands in
+        `self.last_partition_stats`."""
+        from repro_torch.partition import plan_partition
+        plan = plan_partition(coords, mask, feats,
+                              spec=MU.halo_spec(self.module),
+                              ladder=self.ladder, policy=policy)
+        tracer = self.obs.tracer if self.obs is not None else None
+        tid = None
+        if tracer is not None:
+            self._n_partitions += 1
+            tid = f"partition:{self._n_partitions}"
+            tracer.begin(tid, name="partition", n_chunks=plan.n_chunks,
+                         n_rows=int(plan.n_rows))
+        preds, hit, errors = plan.run(self.scheduler(), tracer, tid)
+        if tracer is not None:
+            tracer.end(tid, outcome="ok" if not errors else "chunk_errors",
+                       n_errors=len(errors))
+        self.last_partition_stats = plan.stats()
+        self.last_partition_stats["chunk_errors"] = len(errors)
+        if errors:
+            detail = "; ".join(f"chunk {i}: {err}"
+                               for i, err in sorted(errors.items()))
+            raise RuntimeError(
+                f"segment(partition=): {len(errors)}/{plan.n_chunks} "
+                f"chunks failed — {detail}")
+        return torch.from_numpy(preds).to(self.device), hit
 
     def segment_batch(self, coords, mask, feats, on_error: str = "raise",
                       priority: int = 0):

@@ -1,7 +1,7 @@
 """Port serving engine: `PointCloudEngine(device="cpu").segment` against
 the reference engine on a mini-MinkUNet scene through a small ladder, the
 mapping cache, the device policy (no quiet CPU fallback), and the entry
-points that are not ported yet."""
+point that is not ported yet (the v1 mapping engine)."""
 
 import jax
 import numpy as np
@@ -17,6 +17,7 @@ from repro_torch.kernels.spconv import spconv as TK
 from repro_torch.models import minkunet as TMU
 from repro_torch.serve import buckets as TBK
 from repro_torch.serve.engine import PointCloudEngine as TEngine
+from tests.test_torch_serve_faults import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")
@@ -83,10 +84,8 @@ def test_device_policy_and_unported_entry_points(mini):
     eng = TEngine.factory(module, 2, device="cpu", flow="fod")()
     assert eng.device.type == "cpu" and eng.flow == "fod"
     coords, mask, feats = lidar_scene(6, 100, grid=10)
-    for call in (lambda: eng.segment(coords, mask, feats, partition=True),
-                 lambda: TEngine(module, 2, device="cpu", engine="v1")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TEngine(module, 2, device="cpu", engine="v1")
     # the batched surface runs on the CPU
     preds, hit = eng.segment_batch(coords[None], mask[None], feats[None])
     assert preds.shape == (1, 100) and hit is False

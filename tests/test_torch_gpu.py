@@ -237,6 +237,44 @@ def test_spconv_kernel_replays_in_a_cuda_graph_with_new_maps(fused):
         inv_t.copy_(saved)
 
 
+@pytest.mark.gpu
+def test_spconv_launches_from_two_threads_all_count_and_agree():
+    """Two router workers dispatch from their own threads on one card: the
+    fused wrapper called from two live threads at once gives the plain
+    result every time, and the launch counts (kept under the count lock)
+    lose none."""
+    import threading
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    feats, inv_t, w, epi = _spconv_problem(32, 64, 27)
+    want = ref.spconv_fod_fused_ref(feats, inv_t, w, epi)
+    K.spconv_fod_fused_cuda(feats, inv_t, w, epi)      # library loaded
+    torch.cuda.synchronize()
+    before = dict(K.LAUNCHES)
+    outs, errors, start = [[], []], [], threading.Barrier(2)
+
+    def worker(i):
+        try:
+            start.wait()
+            for _ in range(50):
+                outs[i].append(K.spconv_fod_fused_cuda(feats, inv_t, w, epi))
+            torch.cuda.synchronize()
+        except BaseException as e:     # noqa: BLE001 — reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    for got in outs[0] + outs[1]:
+        torch.testing.assert_close(got, want, **TOL)
+    assert K.LAUNCHES["spconv_fod_fused"] - before["spconv_fod_fused"] == 100
+    assert K.LAUNCHES["spconv_fod_fused_tc"] - \
+        before["spconv_fod_fused_tc"] == 100
+
+
 def _mlp_operands(widths, n, dtype, seed=None):
     rng = np.random.default_rng(sum(widths) + n if seed is None else seed)
     dt = getattr(torch, dtype)
@@ -654,3 +692,60 @@ def test_grouped_matmul_kernel_matches_plain_version(row_tile, eids, cin, cout,
     else:                 # the tensor-core kernel refuses them
         with pytest.raises(ValueError):
             F.grouped_matmul_wgmma(x, eid, w, row_tile)
+
+
+def _windowed_decode_inputs(s_cache, window, positions):
+    """Seeded inputs of one decode step of a reduced granite attention
+    layer, drawn exactly as tests/test_torch_lm_kernels.py
+    `test_decode_attention_matches_reference_masked_path` draws them (that
+    test holds the CPU call to the reference's on them)."""
+    rng = np.random.default_rng(s_cache + (window or 0))
+    from repro_torch.configs import get
+    cfg = get("granite-moe-1b-a400m", reduced=True)
+    d, hkv, hd = cfg.d_model, cfg.n_kv_heads, cfg.resolved_head_dim
+    h = cfg.n_heads
+    params = {n: {"w": rng.normal(size=shape) / np.sqrt(shape[0])}
+              for n, shape in (("wq", (d, h * hd)), ("wk", (d, hkv * hd)),
+                               ("wv", (d, hkv * hd)), ("wo", (h * hd, d)))}
+    x = rng.normal(size=(2, 1, d))
+    k = rng.normal(size=(2, s_cache, hkv, hd))
+    v = rng.normal(size=(2, s_cache, hkv, hd))
+    return cfg, params, x, k, v, np.array(positions, np.int32)
+
+
+def _windowed_decode(cfg, params, x, k, v, pos, window, device):
+    from repro_torch.models import layers as TL
+
+    def t(a, dtype=torch.float32):
+        return torch.tensor(a, dtype=dtype, device=device)
+    tp = {n: {"w": t(p["w"])} for n, p in params.items()}
+    cache = TL.KVCache(t(k), t(v))
+    out, cache = TL.attention_apply(
+        tp, cfg, t(x), t(pos[:, None], torch.int64), layer_window=window,
+        mode="decode", cache=cache, cache_pos=t(pos, torch.int64))
+    return out, cache
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s_cache,window,positions", [
+    (16, 4, [2, 9]), (64, 16, [5, 40])])
+def test_windowed_decode_over_a_longer_cache_runs_on_the_card(
+        s_cache, window, positions):
+    """A window shorter than a plain cache: the valid slots are no prefix,
+    so the layer takes the masked decode path on the card as on the CPU
+    (the reference has no kernel here).  f32, within 1e-5 x max|plain| of
+    the same call on the CPU, which tests/test_torch_lm_kernels.py holds
+    to the reference's on the same inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cfg, params, x, k, v, pos = _windowed_decode_inputs(s_cache, window,
+                                                        positions)
+    got, gcache = _windowed_decode(cfg, params, x, k, v, pos, window, "cuda")
+    want, wcache = _windowed_decode(cfg, params, x, k, v, pos, window, "cpu")
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    scale = float(want.abs().max())
+    assert float((got.cpu() - want).abs().max()) <= 1e-5 * scale
+    # the slot written this step holds the new K/V (projected on each
+    # device: float32 sums in another order), the rest is untouched
+    for g, w in ((gcache.k.cpu(), wcache.k), (gcache.v.cpu(), wcache.v)):
+        assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())

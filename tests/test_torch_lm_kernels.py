@@ -305,6 +305,7 @@ def test_split_plain_version_matches_oracle_and_pallas(split_case, n_split):
     (16, None, [3, 15]),       # full attention: a prefix of pos + 1 slots
     (8, 8, [5, 19]),           # ring buffer, the second one wrapped
     (16, 4, [2, 9]),           # window inside a longer cache: no prefix
+    (64, 16, [5, 40]),         # the same, the second one past the window
     (16, None, [16, 21])])     # past the cache: the write clamps to slot 15
 def test_decode_attention_matches_reference_masked_path(s_cache, window,
                                                         positions):

@@ -21,6 +21,7 @@ from repro_torch.core import mapping as TM
 from repro_torch.kernels.spconv import spconv as TK
 from repro_torch.models import minkunet as TMU
 from repro_torch.models.params import flatten_tree
+from tests.test_torch_serve_faults import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 REDUCED = dict(stem=8, enc_planes=(8, 16), dec_planes=(16, 8),

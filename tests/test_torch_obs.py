@@ -6,9 +6,10 @@ exporters, plus the scheduler contracts at mini-MinkUNet size: the stats()
 key sets, obs-enabled serving bit-identical to the default path, a span
 tree per request, separate error latencies, and a multi-producer chaos
 run that leaves the registry consistent.  Mirrors tests/test_obs.py
-(its router and partition cases wait for those ports); the registry,
-the tracer, the recorder and both exporters are also driven beside the
-reference's on the same seeded contents."""
+(its router and partition cases are mirrored in
+tests/test_torch_serve_router.py and tests/test_torch_partition.py); the
+registry, the tracer, the recorder and both exporters are also driven
+beside the reference's on the same seeded contents."""
 
 import json
 import threading
@@ -27,7 +28,8 @@ from repro_torch.obs import (FlightRecorder, Histogram, MetricsRegistry,
 from repro_torch.serve import faults as FLT
 from repro_torch.serve.faults import FaultPlan
 from repro_torch.serve.scheduler import ServeScheduler
-from tests.test_torch_serve_faults import mini_engine, seg_preds
+from tests.test_torch_serve_faults import (  # noqa: F401 (a fixture)
+    mini_engine, one_torch_thread, seg_preds)
 
 
 def _scene(seed, n):

@@ -62,6 +62,20 @@ def _scene_cf(seed, n):
     return c, f, m
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the module, restored after.  The port's CPU
+    path runs many small ops; in a parallel test run every process starts
+    one intra-op thread a core, the processes together oversubscribe the
+    cores, and each op's barrier then waits on descheduled threads (a test
+    of 3 s alone took 957 s in a six-process run).  Files that import this
+    fixture get it too."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def engine():
     return mini_engine()

@@ -6,8 +6,8 @@ restore, the controller's admission gate (adaptive, priority-lane and
 breaker sheds, each with a `retry_after_s` hint) over a fake scheduler,
 and at mini-MinkUNet size: seeded retry backoff, priority/EDF lane order
 under deferred dispatch, controller-off bit identity, and the 2x-capacity
-storm.  Mirrors tests/test_serve_overload.py (its router case waits for
-the router's port); the breaker and the controller are also driven
+storm.  Mirrors tests/test_serve_overload.py (its router case is mirrored
+in tests/test_torch_serve_router.py); the breaker and the controller are also driven
 beside the reference's on the same event scripts.  The lane test is deterministic here: no deadline
 flushes, explicit flush(), and it compares dispatch order and rids."""
 
@@ -32,7 +32,8 @@ from repro_torch.serve.overload import (BreakerPolicy, BrownoutPolicy,
                                         OverloadPolicy, ServeSLO,
                                         resolve_controller)
 from repro_torch.serve.scheduler import ServeScheduler
-from tests.test_torch_serve_faults import mini_engine, seg_preds
+from tests.test_torch_serve_faults import (  # noqa: F401 (a fixture)
+    mini_engine, one_torch_thread, seg_preds)
 
 
 def _scene(seed, n):

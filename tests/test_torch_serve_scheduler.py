@@ -36,7 +36,8 @@ from repro_torch.serve.buckets import (BucketLadder, geometric_ladder,
 from repro_torch.serve.engine import PointCloudEngine
 from repro_torch.serve.faults import FaultPlan
 from repro_torch.serve.scheduler import ServeScheduler
-from tests.test_torch_serve_faults import mini_engine, mini_module, seg_preds
+from tests.test_torch_serve_faults import (  # noqa: F401 (a fixture)
+    mini_engine, mini_module, one_torch_thread, seg_preds)
 
 
 def _scene_cf(seed, n):

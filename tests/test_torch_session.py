@@ -14,6 +14,7 @@ from repro_torch.core import mapping as TM
 from repro_torch.core.tensor import infer_kernel_size
 from repro_torch.data.synthetic import lidar_scene
 from repro_torch.models import minkunet as TMU
+from tests.test_torch_serve_faults import one_torch_thread  # noqa: F401
 
 
 def test_infer_kernel_size_matches_reference():
