@@ -105,6 +105,20 @@ Phases (any failure exits non-zero; none catches its own):
      equal labels.  The plan's host ms, the chunks' wall ms (both from the
      partition's trace), halo fractions and the monolithic forward's ms
      are printed.
+  4e. v1 mapping engine: `segment` of scene A on a `PointCloudEngine(
+     engine="v1", flow="cuda_fused")`: 41 tensor-core launches (counts
+     zeroed just before, read just after), labels equal to phase 4's v2
+     labels on valid rows except where the plain forward's top-2 gap is
+     below TOL; the mapping ms of v1 and v2 (the median of five misses,
+     each after a fresh mapping cache, minus the median of five hits, the
+     engines taking turns; every sample printed).  An out-of-budget
+     stream (scene A moved by +65536 in x, a multiple of every level's
+     stride, and scene A at batch index 20000): a v2 `ServeScheduler`
+     must refuse both (rejected: `validate_scene` raises AdmissionError)
+     with no launch, a v1 one must serve both with 41 launches each and
+     labels held to the v2 labels by the same rule.  A D = 2 cloud (scene A projected on (x, y)) through
+     `PointAccSession` (engine inferred: v1) at flow "cuda": k = 3
+     stride 1 and 2 and the transposed conv, within TOL of flow "fod".
   5. point kernels: one plain full-width PointNet++(s) forward (13
      classes, B = 16 clouds of N = 4096 points from `dense_xyz_batch`, the
      last cloud masked to 3000 valid points) and one plain full-width
@@ -198,15 +212,36 @@ Phases (any failure exits non-zero; none catches its own):
      negative controls at float32 must be rejected:
      flash_attention skipping its last kv tile, grouped_matmul writing
      expert 0's tiles as zeros, flash_decode reading lengths - 1.
-  11. a {"kernels": [...]} line (six kernels), the nvidia-smi line, and
-     last the {"ok": true, "device": {...}} line.
+  12. train step: full-width granite-moe-1b-a400m, float32 weights from
+     torch.Generator("cuda").manual_seed(0), `make_train_step` with
+     TrainConfig(compute_dtype=bf16, remat=True) and AdamW (lr 1e-3, a
+     1-step warmup), three steps on one `token_batch(0, 0)` of 4 x 512:
+     each step's ms, training tokens/s (B * S / step wall) and peak memory
+     printed; the loss finite and the third step's below the first.
+     Launch counts, zeroed before each step and read after it: 48
+     flash_attention (24 forward + 24 recomputed by remat; its backward
+     recomputes through the plain version), 216 grouped_matmul (144
+     forward, 72 dX), 72 grouped_matmul_dw, all on the tensor-core
+     variants.  grouped_matmul_dw held against its plain version on the
+     first step's three calls of layer 23 at bf16 (8e-3 x max|plain|) and
+     f32 (1e-5), timed beside the plain version and torch.bmm, with its
+     bound.  Parity: one step's gradients at float32 with 2 layers at full
+     width, kernels against the plain versions with the kernel run's MoE
+     routing imposed: loss within 1e-4 relative, every gradient leaf within
+     1e-4 x max|plain leaf|; the same at bf16 within 5e-2; a
+     grouped_matmul_dw that writes expert 0's gradient as zeros must be
+     rejected.
+  13. a {"v1": ..., "train": ...} line, a {"kernels": [...]} line (seven
+     kernels), the nvidia-smi line, and last the {"ok": true, "device":
+     {...}} line.
 
 `--profile` adds torch.profiler tables of one segment hit and one miss
 (each with its wall, device time, busy share and spconv kernel time), of one
 PointNet++(s) forward (split into FPS, ball query, kNN, gathers and
 fused-MLP groups, with the forward's device time and that of the
 fused_mlp kernels, every variant), of one LM prefill and of four LM decode steps
-(device busy share, and the time of each LM kernel).
+(device busy share, and the time of each LM kernel), and of one more train
+step (busy share, time by kernel name).
 """
 
 from __future__ import annotations
@@ -239,6 +274,7 @@ MONO_TOP = 262144          # ladder top of the engine that runs it whole
 FORCED_CHUNKS, AUTO_CHUNKS = 3, 5  # chunks of scene A forced, of OVERSIZED
 N_STAGES = 4
 REPS = 10
+MAP_SAMPLES = 5            # phase 4e: misses and hits timed per mapping engine
 NAMED = {  # the shapes the kernel phase must cover, by site
     "stem": "stem, Cin=4",
     "enc3.b0.conv1": "level-4 encoder, Cin=Cout=256",
@@ -274,6 +310,8 @@ FA_CONTROL_KEYS = 128        # keys the flash_attention negative control drops
 LM_KERNEL_F32_TOL = 1e-5     # kernel phase at f32
 LM_BF16_PATH_TOL = 5e-2      # teacher-forced logits at bf16
 LM_NEAR_TIE = {"f32": 1e-4, "bf16": 2.0 ** -5}  # routing flips: gap / p_k
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 3   # phase 12
+TRAIN_LR = 1e-3
 
 
 def smi_line() -> str:
@@ -678,6 +716,191 @@ def serve_pass(sch, scenes: dict, stream, label: str, got: list) -> dict:
     return {"wall_ms": wall * 1e3, "scenes_per_s": len(rids) / wall,
             "p50_ms": float(np.percentile(lat, 50)),
             "p95_ms": float(np.percentile(lat, 95))}
+
+
+def v1_phase(module, n_stages: int, scene, v2_preds, fod_logits) -> dict:
+    """Phase 4e: the v1 mapping engine at full width.  `segment` of `scene`
+    on an engine="v1" engine (flow "cuda_fused"): 41 tensor-core launches,
+    labels vs `v2_preds` (phase 4's v2 labels) and vs `fod_logits` by the
+    near-tie rule; mapping ms of v1 and v2 (miss minus hit); an
+    out-of-budget stream refused by a v2 scheduler and served by a v1 one;
+    a D = 2 cloud through the session at flow "cuda" vs "fod".  Returns
+    its numbers and the counted run's launches."""
+    import warnings
+
+    import numpy as np
+    import torch
+    from repro_torch.api import MappingCache, PointAccSession
+    from repro_torch.core import packed as PK
+    from repro_torch.kernels.spconv import spconv as K
+    from repro_torch.serve import faults as FLT
+    from repro_torch.serve.engine import PointCloudEngine
+    from repro_torch.serve.scheduler import ServeScheduler
+
+    n_sites = len(site_names(module.tree()))
+    coords, mask, feats = scene
+    dev = fod_logits.device
+    valid = torch.from_numpy(mask).to(dev)
+    warnings.filterwarnings("ignore", message="transposed conv on maps "
+                            "without an inverse table")
+
+    def timed_segment(eng, sc=scene):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        preds, hit = eng.segment(*sc)
+        torch.cuda.synchronize()
+        return preds, hit, (time.perf_counter() - t0) * 1e3
+
+    v1 = PointCloudEngine(module, n_stages, flow="cuda_fused", engine="v1")
+    K.reset_launch_counts()
+    preds, hit, v1_miss = timed_segment(v1)
+    launches = dict(K.LAUNCHES)
+    print(f"v1 segment of scene {SCENE_A}: hit={hit}, launches {launches}")
+    if launches["spconv_fod_fused"] != n_sites or \
+            launches["spconv_fod_fused_tc"] != n_sites or \
+            launches["spconv_fod"]:
+        raise AssertionError(f"v1 segment launches {launches}, expected "
+                             f"{n_sites} fused, all on the tensor cores")
+    levels, _ = v1.levels_for(coords, mask)
+    if any("cloud" in lv for lv in levels) or levels[0]["subm"].inv \
+            is not None:
+        raise AssertionError("the v1 engine's pyramid carries v2 state")
+    top2 = fod_logits.topk(2, dim=-1).values
+    near = (top2[:, 0] - top2[:, 1]) < TOL
+
+    def vs_v2(label, got):
+        """Labels equal to phase 4's v2 labels on valid rows, except where
+        the plain forward's top-2 gap is below TOL."""
+        diff = (got.to(v2_preds.dtype) != v2_preds) & valid
+        print(f"labels {label} vs v2 segment: {int(diff.sum())} of "
+              f"{int(valid.sum())} valid rows differ, "
+              f"{int((diff & near).sum())} of them within a top-2 gap < "
+              f"{TOL:g}")
+        if int((diff & ~near).sum()):
+            raise AssertionError(f"{label}: labels differ from v2's beyond "
+                                 "the tolerance")
+        return int(diff.sum())
+
+    vs_v2("v1 segment", preds)
+    check_vs_fod("v1 segment", preds, fod_logits, valid)
+    # mapping ms: the median of MAP_SAMPLES misses (mapping + forward; a
+    # fresh mapping cache before each) minus the median of as many hits,
+    # the two engines taking turns; every sample is printed
+    v2 = PointCloudEngine(module, n_stages, flow="cuda_fused")
+    samples = {"v1": ([], []), "v2": ([], [])}
+    for _ in range(MAP_SAMPLES):
+        for label, eng in (("v1", v1), ("v2", v2)):
+            eng.session.maps_cache = MappingCache(
+                eng.session.maps_cache.max_entries)
+            for ms, want_hit in zip(samples[label], (False, True)):
+                _, hit, t = timed_segment(eng)
+                if hit != want_hit:
+                    raise AssertionError(f"{label} segment: hit={hit}, "
+                                         f"expected {want_hit}")
+                ms.append(t)
+    times = {}
+    for label, (miss, hits) in samples.items():
+        times[label] = {
+            "miss_ms": statistics.median(miss),
+            "hit_ms": statistics.median(hits),
+            "mapping_ms": statistics.median(miss) - statistics.median(hits),
+            "miss_samples_ms": miss, "hit_samples_ms": hits}
+        print(f"{label} segment at the 65536 bucket, ms: misses "
+              f"{[round(t, 2) for t in miss]}, hits "
+              f"{[round(t, 2) for t in hits]}")
+    print(f"v1 first segment (the counted miss above): {v1_miss:.2f} ms")
+    print(f"v1 vs v2 mapping (median of {MAP_SAMPLES} misses - median of "
+          f"{MAP_SAMPLES} hits): " + "; ".join(
+              f"{k}: miss {v['miss_ms']:.2f}, hit {v['hit_ms']:.2f}, mapping "
+              f"{v['mapping_ms']:.2f}" for k, v in times.items()))
+
+    # out of the packed-key budget: scene A moved by +65536 in x (a multiple
+    # of every level's stride, so each level quantises as the original) and
+    # scene A at batch index 20000
+    far = coords.copy()
+    far[mask, 1] += 65536
+    high = coords.copy()
+    high[mask, 0] = 20000
+    stream = [("x + 65536", far), ("batch 20000", high)]
+    if not (int(far[mask, 1].max()) > PK.COORD_MAX
+            and int(high[mask, 0].max()) > PK.BATCH_MAX):
+        raise AssertionError("the out-of-budget scenes are in the budget")
+    served = {}
+    for label, eng in (("v2", v2), ("v1", v1)):
+        sched = ServeScheduler(eng, max_batch=2)
+        K.reset_launch_counts()
+        rids = [sched.submit(c, feats, mask) for _, c in stream]
+        sched.flush()
+        out = sched.take(rids)
+        counts = dict(K.LAUNCHES)
+        for (what, c), rid in zip(stream, rids):
+            r = out[rid]
+            if label == "v2":
+                try:
+                    FLT.validate_scene(c, feats, mask, eng.ladder)
+                except FLT.AdmissionError as e:
+                    typed = e
+                else:
+                    raise AssertionError(f"validate_scene admits {what}")
+                if r.ok or r.error.code != FLT.REJECTED or \
+                        "packed-key budget" not in r.error.message:
+                    raise AssertionError(f"v2 scheduler, {what}: {r}")
+                print(f"v2 scheduler refuses scene A {what}: {r.error.code} "
+                      f"({type(typed).__name__}: {typed})")
+                continue
+            if not r.ok:
+                raise AssertionError(f"v1 scheduler, {what}: {r.error}")
+            got = torch.as_tensor(np.asarray(r.preds)).to(dev)
+            served[what] = vs_v2(f"v1 scheduler, scene A {what}", got)
+        want = 0 if label == "v2" else n_sites * len(stream)
+        if counts["spconv_fod_fused"] != want or \
+                counts["spconv_fod_fused_tc"] != want:
+            raise AssertionError(f"{label} scheduler launches {counts}, "
+                                 f"expected {want}")
+        print(f"{label} scheduler over the out-of-budget stream: launches "
+              f"{counts}")
+
+    # a D = 2 cloud (scene A's valid rows projected on (x, y)) through the
+    # session: subm, strided and transposed convs, kernel flow vs plain
+    xy = np.unique(coords[mask][:, :3], axis=0).astype(np.int32)
+    gen = torch.Generator().manual_seed(7)
+    cin, mid = 16, 32
+    f2 = torch.randn((xy.shape[0], cin), generator=gen)
+    ws = [torch.randn(shape, generator=gen) / np.sqrt(shape[0] * shape[1])
+          for shape in ((9, cin, mid), (9, mid, mid), (9, mid, cin))]
+    outs = {}
+    for flow in ("cuda", "fod"):
+        session = PointAccSession(flow=flow)
+        x = session.tensor(torch.from_numpy(xy).to(dev),
+                           torch.ones(xy.shape[0], dtype=torch.bool,
+                                      device=dev), f2.to(dev))
+        if x.context.engine != "v1":
+            raise AssertionError("a D = 2 cloud did not take the v1 engine")
+        K.reset_launch_counts()
+        h1 = session.conv(x, ws[0].to(dev))
+        h2 = session.conv(h1, ws[1].to(dev), stride=2)
+        y = session.conv_transposed(h2, ws[2].to(dev), stride=2)
+        torch.cuda.synchronize()
+        outs[flow] = (h1.feats, h2.feats, y.feats, dict(K.LAUNCHES))
+    d2 = []
+    for i, what in enumerate(("k=3 stride 1", "k=3 stride 2",
+                              "transposed k=3 stride 2")):
+        got, want = outs["cuda"][i], outs["fod"][i]
+        err = float((got - want).abs().max())
+        d2.append(err)
+        print(f"D = 2 cloud ({xy.shape[0]} points) {what}: flow cuda vs fod "
+              f"max abs err {err:.2e}, max|plain| "
+              f"{float(want.abs().max()):.3g}")
+        if not torch.allclose(got, want, atol=TOL, rtol=TOL):
+            raise AssertionError(f"D = 2 {what}: flow cuda differs from fod")
+    l2 = outs["cuda"][3]
+    if l2["spconv_fod"] != 3 or l2["spconv_fod_tc"] != 3:
+        raise AssertionError(f"D = 2 session launches {l2}, expected 3 on "
+                             "the tensor cores")
+    if any(outs["fod"][3].values()):
+        raise AssertionError("the plain flow launched a kernel")
+    return {"launches": launches, "times": times, "served": served,
+            "d2_points": int(xy.shape[0]), "d2_err": max(d2)}
 
 
 def serving_phase(module, n_stages: int, scenes: dict, segment_engine,
@@ -1952,7 +2175,8 @@ def lm_phases(dev, mem_rate: float, bf16_rate: float, with_profile: bool):
                    "flash_attention_fma": 0,
                    "grouped_matmul": 4 * 3 * cfg.n_layers,
                    "grouped_matmul_wgmma": 4 * 3 * cfg.n_layers,
-                   "grouped_matmul_fma": 0,
+                   "grouped_matmul_fma": 0, "grouped_matmul_dx": 0,
+                   "grouped_matmul_dw": 0,
                    "flash_decode": n_dec * cfg.n_layers}
     print(f"LM main-path launches over 4 generate calls (4 prefills, {n_dec} "
           f"decode steps): {launches}")
@@ -2097,7 +2321,8 @@ def lm_phases(dev, mem_rate: float, bf16_rate: float, with_profile: bool):
     n = cfg.n_layers
     if l32 != {"flash_attention": n, "flash_attention_wgmma": 0,
                "flash_attention_fma": n, "grouped_matmul": 3 * n,
-               "grouped_matmul_wgmma": 0, "grouped_matmul_fma": 3 * n}:
+               "grouped_matmul_wgmma": 0, "grouped_matmul_fma": 3 * n,
+               "grouped_matmul_dx": 0, "grouped_matmul_dw": 0}:
         raise AssertionError(f"f32 prefill launches {l32}, expected {n} "
                              f"flash_attention and {3 * n} grouped_matmul, "
                              f"all on the FMA kernels")
@@ -2213,6 +2438,291 @@ def lm_phases(dev, mem_rate: float, bf16_rate: float, with_profile: bool):
         "earlier": "one CTA per (batch, kv head), scalar loads (first port; "
                    "no longer in the source, so not timed here)"})
     return entries
+
+
+def train_phase(dev, mem_rate: float, bf16_rate: float,
+                with_profile: bool = False) -> dict:
+    """Phase 12: the LM train step (see the module docstring).  Returns the
+    kernels-line entry of grouped_matmul_dw and the step's numbers.
+    `with_profile` adds one more step under torch.profiler."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get as get_config
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.kernels.flash_attention import flash_attention as FAK
+    from repro_torch.kernels.grouped_matmul import grouped_matmul as GMK
+    from repro_torch.kernels.grouped_matmul import ops as gmm_ops
+    from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_dw_ref
+    from repro_torch.models import registry
+    from repro_torch.models.params import flatten_tree
+    from repro_torch.nn import count_params
+    from repro_torch.train import optim as OPT
+    from repro_torch.train import step as STEP
+
+    t_train = time.perf_counter()
+    l2_bytes = getattr(torch.cuda.get_device_properties(dev),
+                       "L2_cache_size", 50 * 2**20)
+    cfg = get_config(LM_ARCH)
+    model = registry.build(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    batch = token_batch(0, 0, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size)
+    tc = STEP.TrainConfig(compute_dtype=torch.bfloat16, remat=True)
+    opt = OPT.AdamWConfig(lr=TRAIN_LR, warmup_steps=1)
+    step = STEP.make_train_step(model, tc, opt)
+    state = OPT.init(params)
+    n = cfg.n_layers
+    # remat runs each body's forward twice (once more in the backward);
+    # flash_attention's backward recomputes through the plain version
+    want_launch = {"flash_attention": 2 * n, "flash_attention_wgmma": 2 * n,
+                   "flash_attention_fma": 0,
+                   "grouped_matmul": 2 * 3 * n + 3 * n,
+                   "grouped_matmul_wgmma": 2 * 3 * n + 3 * n,
+                   "grouped_matmul_fma": 0, "grouped_matmul_dx": 3 * n,
+                   "grouped_matmul_dw": 3 * n}
+    print(f"train: {LM_ARCH} full width ({n} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_experts} experts top-{cfg.topk}, vocab {cfg.vocab_size}), "
+          f"{count_params(params) / 1e9:.3f} B float32 parameters "
+          f"from torch.Generator(cuda).manual_seed(0); TrainConfig(bf16, "
+          f"remat=True), AdamW lr {TRAIN_LR:g} with a 1-step warmup; one "
+          f"token_batch(0, 0) of {TRAIN_BATCH} x {TRAIN_SEQ} every step; "
+          f"expected launches a step {want_launch}")
+    # the first step's weight-gradient calls (layer 23's: its backward
+    # runs first), kept for the kernel check below
+    real_dw = gmm_ops.grouped_matmul_dw_cuda
+    dw_calls = []
+
+    def keep_dw(x, dy, tile_eid, n_experts, row_tile=128):
+        if len(dw_calls) < 3:
+            dw_calls.append((x.detach(), dy.detach(), tile_eid, n_experts,
+                             row_tile))
+        return real_dw(x, dy, tile_eid, n_experts, row_tile)
+
+    rows, launches_total = [], dict.fromkeys(want_launch, 0)
+    p = params
+    for i in range(TRAIN_STEPS):
+        FAK.reset_launch_counts()
+        GMK.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        if i == 0:
+            gmm_ops.grouped_matmul_dw_cuda = keep_dw
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, state, met = step(p, state, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            gmm_ops.grouped_matmul_dw_cuda = real_dw
+        if i == 0:
+            del params
+        counts = {k: {**FAK.LAUNCHES, **GMK.LAUNCHES}[k] for k in want_launch}
+        met = {k: float(v) for k, v in met.items()}
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        rows.append({"ms": ms, "loss": met["loss"], "aux": met["aux"],
+                     "grad_norm": met["grad_norm"], "lr": met["lr"],
+                     "peak_gib": peak,
+                     "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / ms * 1e3})
+        print(f"train step {i + 1}: {ms:.1f} ms, "
+              f"{rows[-1]['tokens_per_s']:.0f} training tokens/s, peak "
+              f"memory {peak:.2f} GiB; loss {met['loss']:.5f}, aux "
+              f"{met['aux']:.4f}, grad_norm {met['grad_norm']:.4f}, lr "
+              f"{met['lr']:.3g}, n_tokens {met['n_tokens']:.0f}; launches "
+              f"{counts}")
+        if counts != want_launch:
+            raise AssertionError(f"train step {i + 1}: launches {counts}, "
+                                 f"expected {want_launch}")
+        if not all(np.isfinite(v) for v in met.values()):
+            raise AssertionError(f"train step {i + 1}: metrics {met}")
+        for k, v in counts.items():
+            launches_total[k] += v
+    if not rows[-1]["loss"] < rows[0]["loss"]:
+        raise AssertionError(f"the loss did not fall: {[r['loss'] for r in rows]}")
+    if with_profile:
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            p, state, _ = step(p, state, batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        print(prof.key_averages().table(sort_by="cuda_time_total",
+                                        row_limit=25))
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)]
+        busy = sum(e.time_range.end - e.time_range.start
+                   for e in events) / 1e3
+        per = {k: sum(e.time_range.end - e.time_range.start
+                      for e in events if k in e.name) / 1e3
+               for k in ("flash_attention_wgmma_kernel",
+                         "grouped_matmul_wgmma_kernel",
+                         "grouped_matmul_dw_kernel", "gemm", "elementwise",
+                         "reduce", "index", "scatter", "gather", "sort")}
+        print(f"train step under the profiler: wall {wall:.1f} ms, device "
+              f"events {busy:.3f} ms over {len(events)} (busy share "
+              f"{busy / wall:.3f}); by kernel name: "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in per.items()))
+    del p, state
+
+    # grouped_matmul_dw against its plain version at the step's shapes
+    # (bf16, and the same operands in float32), timed beside the plain
+    # version and torch.bmm over the (E, Cin, capacity) x (E, capacity,
+    # Cout) view, with its bound
+    dw = {"n": 0, "ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0,
+          "bytes": 0.0, "ops": 0.0, "err": 0.0, "rel": 0.0}
+    for j, (x, dy, eid, e, rt) in enumerate(dw_calls):
+        cap = x.shape[0] // e
+        if not torch.equal(eid.long(), torch.arange(e, device=dev)
+                           .repeat_interleave(cap // rt)):
+            raise AssertionError("the step's tile_eid is not sorted by "
+                                 "expert in equal segments")
+        for dtype, tol in ((torch.float32, LM_KERNEL_F32_TOL),
+                           (torch.bfloat16, LM_BF16_TOL)):
+            xc, dyc = x.to(dtype), dy.to(dtype)
+            before = GMK.LAUNCHES["grouped_matmul_dw"]
+            got = GMK.grouped_matmul_dw_cuda(xc, dyc, eid, e, rt)
+            want = grouped_matmul_dw_ref(xc, dyc, eid, e, rt)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            scale = float(want.float().abs().max())
+            print(f"grouped_matmul_dw call {j} ({x.shape[0]} x {x.shape[1]} "
+                  f"-> {dy.shape[1]}, {e} experts), {dtype}: max abs err "
+                  f"{err:.2e}, max|plain| {scale:.3g}")
+            if GMK.LAUNCHES["grouped_matmul_dw"] != before + 1 or \
+                    got.dtype != dtype or not err <= tol * scale:
+                raise AssertionError(f"grouped_matmul_dw disagrees with its "
+                                     f"plain version ({dtype})")
+            if dtype == torch.bfloat16:
+                dw["err"] = max(dw["err"], err)
+                dw["rel"] = max(dw["rel"], err / scale)
+        nbytes = x.element_size() * (x.numel() + dy.numel()
+                                     + e * x.shape[1] * dy.shape[1]) \
+            + eid.numel() * 4
+        flops = 2.0 * x.shape[0] * x.shape[1] * dy.shape[1]
+        copies = cold_copies((x, dy, eid), nbytes, l2_bytes)
+        kernel = graph_ms(rotating([
+            lambda a=a: GMK.grouped_matmul_dw_cuda(a[0], a[1], a[2], e, rt)
+            for a in copies]), MLP_REPS)
+        lib = graph_ms(rotating([
+            lambda a=a: torch.bmm(
+                a[0].view(e, cap, -1).transpose(1, 2),
+                a[1].view(e, cap, -1)) for a in copies]), MLP_REPS)
+        plain = cuda_ms(lambda: grouped_matmul_dw_ref(x, dy, eid, e, rt),
+                        REPS)
+        del copies
+        b_bytes, b_ops = nbytes / mem_rate * 1e3, flops / bf16_rate * 1e3
+        print(f"grouped_matmul_dw call {j}: kernel {kernel:.4f} ms, plain "
+              f"{plain:.4f} ms, torch.bmm {lib:.4f} ms, bound "
+              f"{max(b_bytes, b_ops):.4f} ms ({'ops' if b_ops >= b_bytes else 'bytes'})")
+        for key, val in (("ms", kernel), ("plain", plain), ("lib", lib),
+                         ("bound", max(b_bytes, b_ops)), ("bytes", b_bytes),
+                         ("ops", b_ops)):
+            dw[key] += val
+        dw["n"] += 1
+    del dw_calls
+
+    # parity: one step's gradients at 2 layers of full width, kernels
+    # against the plain versions with the kernel run's routing imposed
+    cfg2 = cfg.replace(n_layers=2)
+    model2 = registry.build(cfg2)
+    params2 = model2.init(torch.Generator(device=dev).manual_seed(1),
+                          device=dev)
+    batch2 = {k: torch.as_tensor(v, device=dev) for k, v in
+              token_batch(1, 0, TRAIN_BATCH, TRAIN_SEQ,
+                          cfg.vocab_size).items()}
+    parity = {}
+
+    def grads(grad_fn, routes, record, **through):
+        router = recording_route(routes) if record else imposed_route(routes)
+        with lm_kernels_through(**through), routes_through(router):
+            g, m = grad_fn(params2, batch2)
+        torch.cuda.synchronize()
+        return dict(flatten_tree(g)), float(m["loss"])
+
+    def compare(got, want, tol):
+        """(passes, worst leaf error / max|plain leaf|, that leaf)."""
+        worst, name = 0.0, ""
+        for k, w in want.items():
+            scale = float(w.abs().max())
+            rel = float((got[k] - w).abs().max()) / max(scale, 1e-30)
+            if not bool(got[k].isfinite().all()):
+                rel = float("inf")
+            if rel > worst:
+                worst, name = rel, k
+        return worst <= tol, worst, name
+
+    m2 = 2 * cfg2.n_layers
+    for label, dtype, tol in (("f32", torch.float32, LM_F32_TOL),
+                              ("bf16", torch.bfloat16, LM_BF16_PATH_TOL)):
+        variant = "fma" if label == "f32" else "wgmma"
+        grad_fn = STEP.make_grad_fn(
+            model2, STEP.TrainConfig(compute_dtype=dtype, remat=True))
+        routes = []
+        FAK.reset_launch_counts()
+        GMK.reset_launch_counts()
+        g_k, loss_k = grads(grad_fn, routes, True)
+        counts = {**FAK.LAUNCHES, **GMK.LAUNCHES}
+        if counts[f"flash_attention_{variant}"] != m2 or \
+                counts[f"grouped_matmul_{variant}"] != 3 * m2 + 3 * \
+                cfg2.n_layers or counts["grouped_matmul_dw"] != \
+                3 * cfg2.n_layers:
+            raise AssertionError(f"parity {label}: launches {counts}")
+        g_p, loss_p = grads(grad_fn, routes, False, **plain_lm())
+        ok, worst, leaf = compare(g_k, g_p, tol)
+        loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+        parity[label] = {"loss_rel": loss_rel, "grad_rel": worst,
+                         "leaf": leaf}
+        print(f"train parity {label} (2 layers at full width, "
+              f"{TRAIN_BATCH} x {TRAIN_SEQ}, the kernel run's routing "
+              f"imposed on the plain run): loss {loss_k:.6f} vs plain "
+              f"{loss_p:.6f} (relative {loss_rel:.2e}, tol {tol:g}); worst "
+              f"gradient leaf {leaf}: max|kernel - plain| = {worst:.2e} x "
+              f"max|plain leaf| (tol {tol:g}); launches {counts}")
+        if not ok or not loss_rel <= tol:
+            raise AssertionError(f"train parity {label} fails")
+        if label == "f32":
+            def dw_zero_expert0(x, dy, tile_eid, n_experts, row_tile=128):
+                out = real_dw(x, dy, tile_eid, n_experts, row_tile)
+                out[0] = 0
+                return out
+            gmm_ops.grouped_matmul_dw_cuda = dw_zero_expert0
+            try:
+                g_bad, _ = grads(grad_fn, routes, False)
+            finally:
+                gmm_ops.grouped_matmul_dw_cuda = real_dw
+            ok_c, worst_c, leaf_c = compare(g_bad, g_p, tol)
+            print(f"train negative control (f32): grouped_matmul_dw writing "
+                  f"expert 0's gradient as zeros: worst leaf {leaf_c} at "
+                  f"{worst_c:.2e} -> {'ACCEPTED' if ok_c else 'rejected'}")
+            if ok_c:
+                raise AssertionError("the train parity check accepts a dW "
+                                     "without expert 0")
+        del g_k, g_p
+    print(f"train part: {time.perf_counter() - t_train:.1f} s wall")
+    n_dw = dw["n"]
+    entry = {
+        "name": "grouped_matmul_dw", "route": "cuda",
+        "source": "src/repro_torch/kernels/grouped_matmul/csrc/"
+                  "grouped_matmul_dw.cu",
+        "replaces": "src/repro/kernels/grouped_matmul/grouped_matmul.py:48 "
+                    "(its weight gradient: no TPU kernel, the reference "
+                    "trains through grouped_matmul_ref)",
+        "launches": launches_total["grouped_matmul_dw"],
+        "max_abs_err": dw["err"], "max_rel_err": dw["rel"],
+        "ms": dw["ms"] / n_dw, "plain_ms": dw["plain"] / n_dw,
+        "bound_ms": dw["bound"] / n_dw,
+        "bound_by": "operations" if dw["ops"] >= dw["bytes"] else "bytes",
+        "library_ms": dw["lib"] / n_dw,
+        "library": "torch.bmm over the (E, Cin, capacity) x (E, capacity, "
+                   "Cout) view",
+        "timing": "device ms a call (bf16): 20 calls in one CUDA graph, "
+                  "operands cold",
+        "per": f"one call at the train step's shapes, mean over layer "
+               f"{n - 1}'s three; {3 * n} a step",
+        "train_launches": launches_total}
+    return {"entry": entry, "steps": rows, "parity": parity}
 
 
 def main(argv) -> int:
@@ -2615,12 +3125,18 @@ def main(argv) -> int:
     partition = partition_phase(module, N_STAGES, scenes[SCENE_A],
                                 city_scene(OVERSIZED[0], OVERSIZED[1],
                                            extent=OVERSIZED[2]))
+    # 4e. the v1 mapping engine
+    print(smi_line())
+    v1 = v1_phase(module, N_STAGES, scenes[SCENE_A], results[0][1],
+                  fod_logits)
 
     point_launches, mlp = point_phases(dev, mem_rate, flop_rate, tf32_rate,
                                        "--profile" in argv)
-    lm_kernels = lm_phases(dev, mem_rate,
-                           BF16_PEAKS["pcie" if "PCIe" in name else "sxm"],
-                           "--profile" in argv)
+    bf16_rate = BF16_PEAKS["pcie" if "PCIe" in name else "sxm"]
+    lm_kernels = lm_phases(dev, mem_rate, bf16_rate, "--profile" in argv)
+    # 12. the train step
+    print(smi_line())
+    train = train_phase(dev, mem_rate, bf16_rate, "--profile" in argv)
 
     if "--profile" in argv:
         from torch.profiler import ProfilerActivity, profile
@@ -2678,7 +3194,8 @@ def main(argv) -> int:
          "router_launches": routing["launches"]["spconv_fod_fused"],
          "router_scenes": routing["scenes"],
          "partition_launches": partition["launches"]["spconv_fod_fused"],
-         "partition_chunks": partition["chunks"]},
+         "partition_chunks": partition["chunks"],
+         "v1_launches": v1["launches"]["spconv_fod_fused"]},
         {"name": "spconv_fod", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/spconv/spconv.py:82",
          "launches": launches["spconv_fod"],
@@ -2713,7 +3230,10 @@ def main(argv) -> int:
          "timing": "device ms a call: 20 calls in one CUDA graph",
          "per": "one PointNet++(s) forward (16 x 4096): sum over its 6 "
                 "groups"},
-    ] + lm_kernels
+    ] + lm_kernels + [train["entry"]]
+    print(json.dumps({"v1": {k: v1[k] for k in ("times", "served",
+                                                  "d2_points", "d2_err")},
+                      "train": {k: train[k] for k in ("steps", "parity")}}))
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,8 @@ A second package beside `repro` (the JAX/Pallas reference).  It keeps the
 reference's module names and public function names, so each counterpart is
 found under the same path:
 
-    repro_torch.core.packed / core.mapping   packed int64 keys, v2 mapping
+    repro_torch.core.packed / core.mapping   packed int64 keys; v2 and v1
+                                             mapping engines
     repro_torch.core.sparseconv              conv flows + Epilogue
     repro_torch.core.pointops                FPS, kNN, ball query
     repro_torch.core.fusion                  temporal layer fusion planner
@@ -23,13 +24,16 @@ found under the same path:
                                              overload control
     repro_torch.obs                          metrics, traces, recorder
     repro_torch.launch.fault_tolerance       Ticker, Pulse, Heartbeat
-    repro_torch.configs                      ArchConfig, granite-moe-1b
+    repro_torch.configs                      ArchConfig, granite-moe-1b,
+                                             minkunet, mini-minkunet
     repro_torch.models.layers / moe / lm     LM layers, sorted MoE, LM
     repro_torch.models.registry              build(cfg) -> Model
     repro_torch.kernels.flash_attention      hand-written Hopper kernels:
     repro_torch.kernels.flash_decode           prefill attention, decode
     repro_torch.kernels.grouped_matmul         attention, expert matmul
     repro_torch.serve.lm                     ServeEngine.generate
+    repro_torch.train                        losses, AdamW, train step
+    repro_torch.data.synthetic               scenes, clouds, token batches
 
 Entry points run on the card.  The CPU is opt-in (`device="cpu"`), where
 every kernel wrapper takes its plain PyTorch version.  The package imports

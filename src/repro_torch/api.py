@@ -40,7 +40,9 @@ class SessionConfig:
     """Session-level policy, threaded to every conv the session runs.
 
     flow         : computation flow for every conv (core.sparseconv.FLOWS).
-    engine       : mapping engine ("v2" packed keys, or None = "v2").
+    engine       : mapping engine: "v2" (packed keys), "v1" (lexicographic
+                   sorts: any dimensionality, any int32 coordinates), or
+                   None (v2 for 3-D clouds, else v1).
     cap          : optional map capacity override (the default covers
                    every match).
     cache_entries: LRU bound for the cross-request MappingCache.
@@ -54,9 +56,7 @@ class SessionConfig:
     def __post_init__(self):
         if self.flow not in FLOWS:
             raise ValueError(f"unknown flow {self.flow!r}; one of {FLOWS}")
-        if self.engine == "v1":
-            raise NotImplementedError(M.V1_NOT_PORTED)
-        if self.engine not in (None, "v2"):
+        if self.engine not in (None, "v1", "v2"):
             raise ValueError(f"unknown engine {self.engine!r}")
 
 
@@ -191,14 +191,18 @@ class PointAccSession:
     def canonicalized(self, x: SparseTensor):
         """(x', order): rows permuted into packed-key order, reusing the
         context's sort; the permuted cloud's SortedCloud is seeded with
-        the identity perm.  Restore row order with `out[order] = out'`."""
+        the identity perm.  Restore row order with `out[order] = out'`.
+        Returns (x, None) where the packed engine does not apply (v1, or
+        a cloud that is not 3-D)."""
+        if x.context.engine != "v2" or x.ndim_spatial != 3:
+            return x, None
         sc = x.context.sorted_cloud(x.stride)
         order = sc.perm
         coords = x.coords[order]
         mask = x.mask[order]
         feats = x.feats[order]
         pc = M.PointCloud(coords, mask, x.stride)
-        ctx = MapContext(cap=x.context.cap)
+        ctx = MapContext(engine="v2", cap=x.context.cap)
         ctx.register_cloud(x.stride, M.SortedCloud(
             pc, sc.sorted_keys,
             torch.arange(x.capacity, device=coords.device)))
@@ -227,8 +231,9 @@ class PointAccSession:
         if self.config.flow in ("cuda", "cuda_fused") and maps.inv is None:
             warnings.warn(
                 "transposed conv on maps without an inverse table (built "
-                "with an explicit cap): the kernel flow falls back to a "
-                "scatter-built inverse", stacklevel=2)
+                "with engine='v1' or an explicit cap): the kernel flow "
+                "falls back to a scatter-built inverse — rebuild with "
+                "engine='v2' for the scatter-free path", stacklevel=2)
         new_stride = x.stride // stride if stride > 1 else x.stride
         return self._apply_conv(x, maps, out_pc, weights, epilogue,
                                 new_stride)

@@ -10,7 +10,7 @@ from typing import Optional, Tuple
 
 _REGISTRY: dict = {}
 
-_ARCH_MODULES = ["granite_moe_1b"]   # the ported configs
+_ARCH_MODULES = ["granite_moe_1b", "minkunet", "mini_minkunet"]  # ported
 
 
 @dataclass(frozen=True)

@@ -154,14 +154,17 @@ def sparse_conv_transposed(features: torch.Tensor, maps: KernelMaps,
                            flow: str = "fod",
                            epilogue: Epilogue | None = None) -> torch.Tensor:
     """Transposed (up-sampling) conv: reuse the forward maps with in/out
-    roles swapped.  With an explicit epilogue the caller owns masking;
-    without one invalid output rows are zeroed."""
+    roles swapped.  Maps without a transposed inverse table (v1, capped v2
+    builds) work on every flow; the kernel flows then build the inverse by
+    scatter, with a warning.  With an explicit epilogue the caller owns
+    masking; without one invalid output rows are zeroed."""
     swapped = maps.swap()
     if flow in ("cuda", "cuda_fused") and swapped.inv is None:
         warnings.warn(
             "transposed conv on maps without an inverse table (built with "
-            "an explicit cap): the kernel flow falls back to a "
-            "scatter-built inverse", stacklevel=2)
+            "engine='v1' or an explicit cap): the kernel flow falls back "
+            "to a scatter-built inverse — rebuild the maps with "
+            "engine='v2' for the scatter-free path", stacklevel=2)
     out = sparse_conv_apply(features, swapped, weights, out_pc.capacity,
                             flow, epilogue=epilogue)
     if epilogue is None:

@@ -4,12 +4,14 @@ Mapping-Unit state.
   * `SparseTensor` — features + a masked voxel cloud + tensor stride,
     sharing one `MapContext` along a network.
   * `MapContext` — everything the mapping produces for one geometry: the
-    `SortedCloud` per stride level and every kernel map keyed by
-    (kernel_size, in_stride, out_stride).  The same key finds the forward
-    maps that a transposed conv swaps.
+    cloud per stride level (a `SortedCloud` under the v2 engine) and every
+    kernel map keyed by (kernel_size, in_stride, out_stride).  The same
+    key finds the forward maps that a transposed conv swaps.
 
-Mapping state is built lazily and memoized: the first conv at a stride
-level sorts the cloud once; every later conv there is binary searches.
+Mapping state is built lazily and memoized.  Under v2 the first conv at a
+stride level sorts the cloud once and every later conv there is binary
+searches; under v1 (clouds that are not 3-D, or coordinates outside the
+packed-key budget) each map is its own lexicographic sort.
 """
 
 from __future__ import annotations
@@ -53,19 +55,21 @@ def infer_kernel_size(k: int, ndim: int) -> int:
 
 
 class MapContext:
-    """Mapping state for one geometry (v2 engine):
+    """Mapping state for one geometry:
 
-    clouds : stride -> SortedCloud or PointCloud (sorted on first demand)
+    clouds : stride -> SortedCloud (v2, sorted on first demand) or
+             PointCloud (v1)
     maps   : (kernel_size, in_stride, out_stride) -> KernelMaps
     plans  : conv-site shape -> core.fusion.ConvFusionPlan (`plan`)
+
+    `engine` None is inferred from the first cloud registered: "v2" for a
+    3-D cloud, else "v1".
     """
 
     def __init__(self, engine: str | None = None, cap: int | None = None):
-        if engine == "v1":
-            raise NotImplementedError(M.V1_NOT_PORTED)
-        if engine not in (None, "v2"):
+        if engine not in (None, "v1", "v2"):
             raise ValueError(f"unknown mapping engine {engine!r}")
-        self.engine = "v2"
+        self.engine = engine
         self.cap = cap
         self.clouds: dict[int, M.PointCloud | M.SortedCloud] = {}
         self.maps: dict[tuple[int, int, int], M.KernelMaps] = {}
@@ -74,8 +78,8 @@ class MapContext:
     def register_cloud(self, stride: int, cloud, overwrite: bool = False):
         """Install a cloud at a stride level (no-op if one is present)."""
         pc = cloud.pc if isinstance(cloud, M.SortedCloud) else cloud
-        if pc.ndim_spatial != 3:
-            raise NotImplementedError(M.V1_NOT_PORTED)
+        if self.engine is None:
+            self.engine = "v2" if pc.ndim_spatial == 3 else "v1"
         if overwrite or stride not in self.clouds:
             self.clouds[stride] = cloud
 
@@ -95,25 +99,38 @@ class MapContext:
         """Output cloud of a strided conv (memoized per stride level)."""
         target = in_stride * factor
         if target not in self.clouds:
-            self.clouds[target] = M.downsample_sorted(
-                self.sorted_cloud(in_stride), factor)
+            if self.engine == "v2":
+                self.clouds[target] = M.downsample_sorted(
+                    self.sorted_cloud(in_stride), factor)
+            else:
+                self.clouds[target] = M.downsample(
+                    self.point_cloud(in_stride), factor)
         return self.point_cloud(target)
 
     def conv_maps(self, kernel_size: int, in_stride: int,
                   factor: int = 1) -> tuple[M.KernelMaps, M.PointCloud]:
         """Maps + output cloud for a (possibly strided) conv, memoized.
-        Strided maps also carry the swapped inverse table (`inv_t`)."""
+        v2: binary searches against the level's SortedCloud; strided maps
+        also carry the swapped inverse table (`inv_t`).  v1: one batched
+        lexicographic intersection over the offsets."""
         out_stride = in_stride * factor
         key = (kernel_size, in_stride, out_stride)
         if key not in self.maps:
-            sc = self.sorted_cloud(in_stride)
-            if factor == 1:
-                out_sc = sc
+            if self.engine == "v2":
+                sc = self.sorted_cloud(in_stride)
+                if factor == 1:
+                    out_sc = sc
+                else:
+                    self.down_cloud(in_stride, factor)
+                    out_sc = self.sorted_cloud(out_stride)
+                self.maps[key], _ = M.build_conv_maps_cached(
+                    sc, kernel_size, factor, cap=self.cap, out_sc=out_sc)
             else:
-                self.down_cloud(in_stride, factor)
-                out_sc = self.sorted_cloud(out_stride)
-            self.maps[key], _ = M.build_conv_maps_cached(
-                sc, kernel_size, factor, cap=self.cap, out_sc=out_sc)
+                in_pc = self.point_cloud(in_stride)
+                out_pc = in_pc if factor == 1 else \
+                    self.down_cloud(in_stride, factor)
+                self.maps[key] = M.kernel_map(in_pc, out_pc, kernel_size,
+                                              cap=self.cap)
         return self.maps[key], self.point_cloud(out_stride)
 
     def transposed_maps(self, kernel_size: int, coarse_stride: int,
@@ -185,7 +202,8 @@ class SparseTensor:
 
     def padded_to(self, capacity: int) -> "SparseTensor":
         """Row-pad up to a serving-bucket capacity with sentinel rows; the
-        padded tensor starts a fresh MapContext (maps are capacity-shaped)."""
+        padded tensor starts a fresh MapContext with the same engine and
+        cap (maps are capacity-shaped)."""
         if capacity < self.capacity:
             raise ValueError(
                 f"cannot pad a capacity-{self.capacity} tensor down to "
@@ -201,7 +219,7 @@ class SparseTensor:
                                                  device=dev)])
         feats = torch.cat([self.feats, self.feats.new_zeros(
             (pad,) + tuple(self.feats.shape[1:]))])
-        ctx = MapContext(cap=self.context.cap)
+        ctx = MapContext(engine=self.context.engine, cap=self.context.cap)
         ctx.register_cloud(self.stride, M.PointCloud(coords, mask,
                                                      self.stride))
         return SparseTensor(feats, coords, mask, self.stride, ctx)

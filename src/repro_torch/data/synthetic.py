@@ -1,12 +1,33 @@
-"""Deterministic synthetic LiDAR scenes and point clouds (numpy only).
+"""Deterministic synthetic data (numpy only): token streams, LiDAR scenes
+and point clouds.
 
 The same functions, with the same seeds, as the reference package's
-`data/synthetic.py`, so both packages see identical input scenes.
+`data/synthetic.py`, so both packages see identical inputs.  Each is a
+pure function of (seed, step, host): any host can regenerate any batch.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def token_batch(seed: int, step: int, batch: int, seq: int,
+                vocab: int, host: int = 0, n_hosts: int = 1) -> dict:
+    """Markov-ish synthetic token stream (not uniform noise: the LM has
+    structure to learn, so train losses decrease).  int32 numpy arrays
+    tokens / labels (the next token) / positions, each (batch // n_hosts,
+    seq)."""
+    rng = np.random.default_rng(
+        np.random.SeedSequence([seed, step, host]))
+    b_loc = batch // n_hosts
+    base = rng.integers(0, vocab, size=(b_loc, 1))
+    steps = rng.integers(1, 17, size=(b_loc, seq + 1))
+    toks = (base + np.cumsum(steps, axis=1)) % vocab
+    tokens = toks[:, :-1].astype(np.int32)
+    labels = toks[:, 1:].astype(np.int32)
+    positions = np.broadcast_to(np.arange(seq, dtype=np.int32),
+                                (b_loc, seq)).copy()
+    return {"tokens": tokens, "labels": labels, "positions": positions}
 
 
 def lidar_scene(seed: int, n_points: int, grid: int = 64,
@@ -78,6 +99,26 @@ def city_scene(seed: int, n_points: int, extent: int | None = None,
     feats[:n, :3] = uniq / extent - 0.5
     feats[:n, 3] = rng.random(n)
     return coords, mask, feats
+
+
+def point_cloud_batch(seed: int, step: int, batch: int, n_points: int,
+                      grid: int = 64):
+    """Batched scenes flattened into one masked cloud + per-point labels
+    (synthetic semantic task: ground vs object by height).  Returns
+    (coords (B*N, 4), mask, feats (B*N, 4), labels (B*N,) int32)."""
+    cs, ms, fs = [], [], []
+    for b in range(batch):
+        c, m, f = lidar_scene(seed + step * 1000, n_points, grid,
+                              batch_idx=b)
+        cs.append(c)
+        ms.append(m)
+        fs.append(f)
+    coords = np.concatenate(cs, axis=0)
+    mask = np.concatenate(ms, axis=0)
+    feats = np.concatenate(fs, axis=0)
+    labels = (coords[:, 3] > 0).astype(np.int32)     # object if z > 0
+    labels[~mask] = 0
+    return coords, mask, feats, labels
 
 
 def dense_xyz_batch(seed: int, step: int, batch: int, n_points: int):

@@ -1,5 +1,6 @@
 """Wrappers of the grouped matmul kernels (`csrc/grouped_matmul_wgmma.cu`,
-`csrc/grouped_matmul.cu`).
+`csrc/grouped_matmul.cu`, and the weight gradient's
+`csrc/grouped_matmul_dw.cu`).
 
   * `grouped_matmul_cuda` — x (R, Cin) rows sorted and padded by expert,
     tile_eid (R // row_tile,) the expert of each row tile, weights
@@ -11,6 +12,13 @@
   * `grouped_matmul_fma` — float32 FMAs, for everything else (float32, so
     no TF32; bf16 at odd widths); row tiles a multiple of 64.
 
+Training adds two launches a call (`ops.grouped_matmul`'s backward):
+  * `grouped_matmul_dx_cuda` — dX = dY @ W^T: the forward kernel above on
+    dY with the weights transposed to (E, Cout, Cin);
+  * `grouped_matmul_dw_cuda` — dW[e] = sum of x_i^T dY_i over the row tiles
+    of expert e: its own kernel, float32 FMAs, one CTA a (64 x 128 tile of
+    dW[e]) with no atomics.
+
 The choice depends on dtype and shape only, never on a failure: a refused
 launch raises.  A CPU tensor goes to the plain version
 (`ref.grouped_matmul_ref`) and no count moves.  A CUDA tensor launches a
@@ -18,8 +26,10 @@ kernel on the current stream, or raises.  The kernels take `tile_eid` as
 given (no equal segments assumed); an id out of range follows the
 reference's rule in every path (`ref.expert_ids`: a negative id wraps once,
 then clamps to [0, E - 1]).
-`LAUNCHES` counts kernel launches: "grouped_matmul" every one, and one
-count per variant.
+`LAUNCHES` counts kernel launches: "grouped_matmul" every launch of the
+forward kernels (dX's too), one count per variant, "grouped_matmul_dx"
+the dX launches among them, and "grouped_matmul_dw" the weight-gradient
+kernel's.
 """
 
 from __future__ import annotations
@@ -29,20 +39,26 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref
+from repro_torch.kernels.grouped_matmul.ref import (grouped_matmul_dw_ref,
+                                                   grouped_matmul_ref)
 
 FMA_ROWS_PER_CTA = 64
 WGMMA_ROWS_PER_CTA = 128
 WGMMA_K_STEP = 64          # input channels a pipeline stage of the wgmma kernel
 DTYPES = (torch.float32, torch.bfloat16)
 
+DW_ROWS_PER_STEP = 16      # rows the weight-gradient kernel stages a step
+
 LAUNCHES = {"grouped_matmul": 0, "grouped_matmul_wgmma": 0,
-            "grouped_matmul_fma": 0}
+            "grouped_matmul_fma": 0, "grouped_matmul_dx": 0,
+            "grouped_matmul_dw": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {"wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-             "fma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]}
-_SOURCES = {"wgmma": "grouped_matmul_wgmma", "fma": "grouped_matmul"}
+             "fma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+             "dw": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]}
+_SOURCES = {"wgmma": "grouped_matmul_wgmma", "fma": "grouped_matmul",
+            "dw": "grouped_matmul_dw"}
 
 
 def reset_launch_counts() -> None:
@@ -85,7 +101,7 @@ def _check(x, tile_eid, weights, row_tile):
                         f"got {x.dtype}, {weights.dtype}")
 
 
-def _launch(kind, x, tile_eid, weights, row_tile):
+def _launch(kind, x, tile_eid, weights, row_tile, dx=False):
     if x.device.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got {x.device}")
     if kind == "fma" and row_tile % FMA_ROWS_PER_CTA:
@@ -114,6 +130,8 @@ def _launch(kind, x, tile_eid, weights, row_tile):
                            f"tensor map)")
     LAUNCHES["grouped_matmul"] += 1
     LAUNCHES[f"grouped_matmul_{kind}"] += 1
+    if dx:
+        LAUNCHES["grouped_matmul_dx"] += 1
     return out
 
 
@@ -154,3 +172,63 @@ def grouped_matmul_fma(x: torch.Tensor, tile_eid: torch.Tensor,
     if x.device.type == "cpu":
         return grouped_matmul_ref(x, tile_eid, weights, row_tile)
     return _launch("fma", x, tile_eid, weights, row_tile)
+
+
+def grouped_matmul_dx_cuda(dy: torch.Tensor, tile_eid: torch.Tensor,
+                           weights: torch.Tensor,
+                           row_tile: int = 128) -> torch.Tensor:
+    """The input gradient of `grouped_matmul_cuda`: dY (R, Cout) times the
+    transpose of weights[tile_eid[i]] on row tile i -> (R, Cin), through
+    the forward kernel that `variant` picks for the transposed shape."""
+    w_t = weights.transpose(1, 2).contiguous()
+    _check(dy, tile_eid, w_t, row_tile)
+    if dy.device.type == "cpu":
+        return grouped_matmul_ref(dy, tile_eid, w_t, row_tile)
+    kind = variant(dy.dtype, dy.shape[1], w_t.shape[2], row_tile)
+    return _launch(kind, dy, tile_eid, w_t, row_tile, dx=True)
+
+
+def grouped_matmul_dw_cuda(x: torch.Tensor, dy: torch.Tensor,
+                           tile_eid: torch.Tensor, n_experts: int,
+                           row_tile: int = 128) -> torch.Tensor:
+    """The weight gradient of `grouped_matmul_cuda`: x (R, Cin), dY (R,
+    Cout) -> dW (E, Cin, Cout) in x's dtype, dW[e] = sum of x_i^T dY_i over
+    the row tiles whose expert is e (ids resolved as the forward resolves
+    them; float32 sums; zeros for an expert without tiles)."""
+    if x.dim() != 2 or dy.dim() != 2 or tile_eid.dim() != 1 \
+            or dy.shape[0] != x.shape[0]:
+        raise ValueError(f"expected x (R, Cin), dy (R, Cout), tile_eid "
+                         f"(R // row_tile,); got {tuple(x.shape)}, "
+                         f"{tuple(dy.shape)}, {tuple(tile_eid.shape)}")
+    r, cin = x.shape
+    cout = dy.shape[1]
+    if row_tile < 1 or r % row_tile or tile_eid.shape[0] != r // row_tile:
+        raise ValueError(f"{r} rows are not {tile_eid.shape[0]} tiles of "
+                         f"{row_tile}")
+    if x.dtype not in DTYPES or dy.dtype != x.dtype:
+        raise TypeError(f"x and dy must both be float32 or both bfloat16, "
+                        f"got {x.dtype}, {dy.dtype}")
+    if n_experts < 1:
+        raise ValueError(f"n_experts must be >= 1, got {n_experts}")
+    if x.device.type == "cpu":
+        return grouped_matmul_dw_ref(x, dy, tile_eid, n_experts, row_tile)
+    if x.device.type != "cuda":
+        raise ValueError(f"the CUDA kernel takes CUDA tensors, got {x.device}")
+    if row_tile % DW_ROWS_PER_STEP:
+        raise ValueError(f"the weight-gradient kernel takes row tiles that "
+                         f"are multiples of {DW_ROWS_PER_STEP}, got "
+                         f"{row_tile}")
+    if tile_eid.dtype != torch.int32:
+        raise TypeError(f"tile_eid must be int32, got {tile_eid.dtype}")
+    dev = x.device
+    ptrs = [build.device_operand(t, n, dev) for t, n in (
+        (x, "x"), (dy, "dy"), (tile_eid, "tile_eid"))]
+    out = torch.empty((n_experts, cin, cout), dtype=x.dtype, device=dev)
+    err = _fn("dw")(*ptrs, out.data_ptr(), r, cin, cout, n_experts, row_tile,
+                    int(x.dtype == torch.bfloat16),
+                    torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"grouped_matmul_dw kernel launch failed: error "
+                           f"{err} (a cudaError_t)")
+    LAUNCHES["grouped_matmul_dw"] += 1
+    return out

@@ -8,7 +8,10 @@ equal the reference's.
 
   * `make_dispatch`  — expert_idx (T, topk) -> `Dispatch`.
   * `grouped_matmul` — through the CUDA kernel that `grouped_matmul_cuda`
-    picks by dtype and shape (its plain version on CPU tensors).
+    picks by dtype and shape (its plain version on CPU tensors), as a
+    `torch.autograd.Function`: its backward launches the same kernel for
+    dX (dY against the transposed weights) and the weight-gradient kernel
+    for dW (`grouped_matmul_dw_cuda`), the plain versions on the CPU.
   * `sorted_moe_ffn` — the whole sorted-dispatch expert FFN: three
     `grouped_matmul` calls (w_in, w_gate, w_out).
 """
@@ -20,8 +23,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.grouped_matmul.grouped_matmul import \
-    grouped_matmul_cuda
+from repro_torch.kernels.grouped_matmul.grouped_matmul import (
+    grouped_matmul_cuda, grouped_matmul_dw_cuda, grouped_matmul_dx_cuda)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -72,10 +75,38 @@ def make_dispatch(expert_idx: torch.Tensor, n_experts: int,
                     src_token[:n_rows].to(torch.int32), n_rows)
 
 
+class _GroupedMatmul(torch.autograd.Function):
+    """Forward through the kernel; backward: dX through the same kernel on
+    the transposed weights, dW through the weight-gradient kernel.  An
+    out-of-range `tile_eid` resolves the same way in all three
+    (`ref.expert_ids`), so the gradients are those of the forward as
+    computed: what autograd of the plain version gives."""
+
+    @staticmethod
+    def forward(ctx, x, tile_eid, weights, row_tile):
+        ctx.save_for_backward(x, tile_eid, weights)
+        ctx.row_tile = row_tile
+        return grouped_matmul_cuda(x, tile_eid, weights, row_tile)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, tile_eid, weights = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = grouped_matmul_dx_cuda(dy, tile_eid, weights, ctx.row_tile)
+        if ctx.needs_input_grad[2]:
+            dw = grouped_matmul_dw_cuda(x, dy, tile_eid, weights.shape[0],
+                                        ctx.row_tile)
+        return dx, None, dw, None
+
+
 def grouped_matmul(x: torch.Tensor, tile_eid: torch.Tensor,
                    weights: torch.Tensor, row_tile: int = 128) -> torch.Tensor:
-    return grouped_matmul_cuda(x.contiguous(), tile_eid.contiguous(),
-                               weights.contiguous(), row_tile)
+    """Row tile i of x times weights[tile_eid[i]] -> (R, Cout), with
+    gradients for x and weights (see `_GroupedMatmul`)."""
+    return _GroupedMatmul.apply(x.contiguous(), tile_eid.contiguous(),
+                                weights.contiguous(), row_tile)
 
 
 def sorted_moe_ffn(x: torch.Tensor, expert_idx: torch.Tensor,

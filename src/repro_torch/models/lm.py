@@ -7,9 +7,11 @@ sub-layers whose parameters are stacked along a leading `n_bodies` axis
 keys and shapes match the reference's one to one, and runs a Python loop
 over bodies in place of the scan.
 
-Modes: "train" (no state), "prefill" (produce per-body states, stacked),
-"decode" (consume states and update them in place: the counterpart of the
-reference's donated buffers).  Only what granite-moe-1b-a400m needs is
+Modes: "train" (no state; `remat=True` checkpoints each body with
+`torch.utils.checkpoint`, as the reference `jax.checkpoint`s it, so only
+the bodies' boundary activations survive the forward), "prefill" (produce
+per-body states, stacked), "decode" (consume states and update them in
+place: the counterpart of the reference's donated buffers).  Only what granite-moe-1b-a400m needs is
 ported: attention bodies with dense or MoE FFNs, RMSNorm, RoPE, an untied
 head.  `check_ported` raises NotImplementedError for the reference's other
 features (mamba/xLSTM layouts, M-RoPE, sandwich and local/global norms,
@@ -26,6 +28,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import nn
 from repro_torch.configs.base import ArchConfig
@@ -51,7 +54,8 @@ def check_ported(cfg: ArchConfig) -> None:
     """Raise NotImplementedError for a config the port cannot run."""
     if cfg.ssm_type is not None:
         raise NotImplementedError(
-            f"{cfg.ssm_type} sub-layers are not ported yet (ROADMAP A.11): "
+            f"{cfg.ssm_type} sub-layers are not ported yet (ROADMAP Queue A "
+            "item 5): "
             "only attention bodies run in repro_torch")
     found = [f for f in _UNPORTED_FLAGS if getattr(cfg, f)]
     if cfg.final_softcap is not None:
@@ -60,7 +64,8 @@ def check_ported(cfg: ArchConfig) -> None:
         found.append(f"norm={cfg.norm!r}")
     if found:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(found)} not ported yet (ROADMAP A.11)")
+            f"{cfg.name}: {', '.join(found)} not ported yet (ROADMAP Queue A "
+            "item 5)")
 
 
 def body_layout(cfg: ArchConfig):
@@ -204,9 +209,12 @@ def lm_head(params, cfg: ArchConfig, x):
 
 def lm_apply(params, cfg: ArchConfig, tokens, positions, *,
              mode: str = "train", states=None, cache_pos=None,
-             moe_impl: str = "sorted"):
-    """tokens (B, S); positions (B, S[, 3]).  Returns (logits, new_states,
-    aux).  In decode mode `states` is updated in place and returned."""
+             moe_impl: str = "sorted", return_hidden: bool = False,
+             remat: bool = False):
+    """tokens (B, S); positions (B, S[, 3]).  Returns (logits_or_hidden,
+    new_states, aux).  In decode mode `states` is updated in place and
+    returned.  `return_hidden` skips the final norm and head; `remat`
+    (train mode) recomputes each body in the backward pass."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(mode)
     check_ported(cfg)
@@ -214,12 +222,26 @@ def lm_apply(params, cfg: ArchConfig, tokens, positions, *,
     x = embed_tokens(params, cfg, tokens)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     n_bodies = cfg.n_layers // cfg.block_pattern
+
+    def train_body(x, p_body):
+        y, _, a = body_apply(p_body, cfg, x, positions, mode="train",
+                             moe_impl=moe_impl)
+        return y, a
+
     per_body = []
     for i in range(n_bodies):
+        p_body = _index(params["layers"], i)
+        if mode == "train":
+            if remat:
+                x, a = checkpoint(train_body, x, p_body, use_reentrant=False)
+            else:
+                x, a = train_body(x, p_body)
+            aux = aux + a
+            continue
         st = _index(states, i) if mode == "decode" else None
-        x, nst, a = body_apply(_index(params["layers"], i), cfg, x,
-                               positions, mode=mode, states=st,
-                               cache_pos=cache_pos, moe_impl=moe_impl)
+        x, nst, a = body_apply(p_body, cfg, x, positions, mode=mode,
+                               states=st, cache_pos=cache_pos,
+                               moe_impl=moe_impl)
         aux = aux + a
         per_body.append(nst)
     if mode == "train":
@@ -228,4 +250,6 @@ def lm_apply(params, cfg: ArchConfig, tokens, positions, *,
         new_states = _stack(per_body)
     else:
         new_states = states
+    if return_hidden:
+        return x, new_states, aux
     return lm_head(params, cfg, x), new_states, aux

@@ -181,18 +181,20 @@ def minkunet_forward(session: PointAccSession, params,
 
 def build_unet_maps(pc: M.PointCloud, n_stages: int,
                     engine: str | None = None):
-    """Mapping pass: per-level dicts with the level's cloud ("pc"), its
-    SortedCloud ("cloud"), the submanifold k=3 maps ("subm") and the
-    stride-2 down maps into the next level ("down").  Each level is sorted
-    exactly once; the decoder reuses "down" swapped."""
+    """Mapping pass: per-level dicts with the level's cloud ("pc"), the
+    submanifold k=3 maps ("subm"), the stride-2 down maps into the next
+    level ("down") and, under the v2 engine, the level's SortedCloud
+    ("cloud"; each level is sorted exactly once).  The decoder reuses
+    "down" swapped."""
     ctx = MapContext(engine=engine)
     ctx.register_cloud(pc.stride, pc)
     levels = []
     stride = pc.stride
     for i in range(n_stages + 1):
         subm, _ = ctx.conv_maps(3, stride, 1)
-        level = {"pc": ctx.point_cloud(stride), "subm": subm,
-                 "cloud": ctx.sorted_cloud(stride)}
+        level = {"pc": ctx.point_cloud(stride), "subm": subm}
+        if ctx.engine == "v2":
+            level["cloud"] = ctx.sorted_cloud(stride)
         if i < n_stages:
             level["down"], _ = ctx.conv_maps(2, stride, 2)
             stride *= 2
@@ -202,8 +204,10 @@ def build_unet_maps(pc: M.PointCloud, n_stages: int,
 
 def _context_from_levels(levels, base_stride: int = 1) -> MapContext:
     """Rebuild a MapContext from a `build_unet_maps` level pyramid (level i
-    sits at base_stride * 2^i)."""
-    ctx = MapContext()
+    sits at base_stride * 2^i); a pyramid without SortedClouds was built
+    by the v1 engine."""
+    engine = "v2" if any("cloud" in lv for lv in levels) else "v1"
+    ctx = MapContext(engine=engine)
     stride = base_stride
     for level in levels:
         ctx.clouds[stride] = level.get("cloud", level["pc"])

@@ -5,9 +5,11 @@ of the reference's `models/moe.py`.
     expert, one-hot combine (plain products; the decode step's default).
   * `sorted` — single-shard Fetch-on-Demand: assignments sorted by expert
     (Mapping Unit), grouped matmul over contiguous segments through the
-    hand-written kernel (`kernels/grouped_matmul`; the prefill's default).
+    hand-written kernel (`kernels/grouped_matmul`; the default of the
+    prefill and of training, whose backward runs the kernel for dX and the
+    weight-gradient kernel for dW).
   * `ep`     — the sharded expert-parallel version: not ported yet
-    (ROADMAP A.12).
+    (ROADMAP Queue A item 6).
 
 The aux load-balance loss (Switch-style) is returned alongside.
 """
@@ -105,7 +107,7 @@ def moe_apply_sorted(p, cfg: ArchConfig, x: torch.Tensor,
 def moe_apply_ep(*args, **kwargs):
     raise NotImplementedError(
         "moe_apply_ep (sharded expert parallelism) is not ported yet: "
-        "ROADMAP A.12")
+        "ROADMAP Queue A item 6")
 
 
 def moe_apply(p, cfg, x, impl: str = "sorted", **kw):

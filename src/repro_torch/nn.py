@@ -1,5 +1,6 @@
 """Functional layers on parameter dicts: the parts of the reference's
-`nn.py` that the port's models use, and their initialisers."""
+`nn.py` that the port's models and training use, and their
+initialisers."""
 
 from __future__ import annotations
 
@@ -9,7 +10,7 @@ from typing import Sequence
 import torch
 
 from repro_torch.kernels.fused_mlp.ref import chain_operands, fused_mlp_ref
-from repro_torch.models.params import tree_map
+from repro_torch.models.params import ParamTree, flatten_tree, tree_map
 
 LN_EPS = 1e-6  # the reference's layernorm eps (torch's default is 1e-5)
 
@@ -70,6 +71,11 @@ def layernorm(p, x: torch.Tensor, eps: float = LN_EPS) -> torch.Tensor:
     return (y * p["scale"] + p["bias"]).to(x.dtype)
 
 
+def layernorm_init(d: int, device=None):
+    return {"scale": torch.ones(d, device=device),
+            "bias": torch.zeros(d, device=device)}
+
+
 def rmsnorm_init(d: int, device=None):
     return {"scale": torch.ones(d, device=device)}
 
@@ -97,3 +103,31 @@ def cast_floating(tree, dtype):
     to `dtype` (a leaf already in `dtype` is returned as is)."""
     return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x,
                     tree)
+
+
+def count_params(params) -> int:
+    """Number of scalars in a parameter tree (a ParamTree or nested
+    dicts / lists of tensors)."""
+    if isinstance(params, ParamTree):
+        params = params.tree()
+    return sum(x.numel() for _, x in flatten_tree(params))
+
+
+class _CotangentCast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dtype):
+        ctx.dtype = dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype), None
+
+
+def cotangent_cast(x: torch.Tensor, dtype) -> torch.Tensor:
+    """Identity forward; casts the gradient to `dtype` in backward.  Put
+    after the backbone's hidden states, it keeps the backbone's backward
+    in the compute dtype although the loss's float32 ops make the incoming
+    gradient float32; parameter gradients still land in float32 through
+    the parameter cast."""
+    return _CotangentCast.apply(x, dtype)

@@ -385,6 +385,9 @@ class ServeScheduler:
         self.overload = OV.resolve_controller(overload)
         self.fault_plan = fault_plan if fault_plan is not None else \
             getattr(engine, "fault_plan", None)
+        # the packed-key budget is only a constraint for the v2 engine
+        self._check_key_budget = \
+            getattr(engine.session.config, "engine", None) != "v1"
         self.assembly_cache = AssemblyCache(assembly_cache_entries) \
             if assembly_cache_entries else None
 
@@ -612,6 +615,7 @@ class ServeScheduler:
             try:
                 coords, mask, feats, n, cap = FLT.validate_scene(
                     coords, feats, mask, self.ladder,
+                    check_key_budget=self._check_key_budget,
                     coord_dim=self._coord_dim,
                     feat_shape=self._feat_shape)
             except FLT.AdmissionError as e:

@@ -1,7 +1,7 @@
 """Port serving engine: `PointCloudEngine(device="cpu").segment` against
 the reference engine on a mini-MinkUNet scene through a small ladder, the
-mapping cache, the device policy (no quiet CPU fallback), and the entry
-point that is not ported yet (the v1 mapping engine)."""
+mapping cache, the device policy (no quiet CPU fallback), and the engine
+policy (v1 accepted, an unknown engine refused)."""
 
 import jax
 import numpy as np
@@ -84,8 +84,10 @@ def test_device_policy_and_unported_entry_points(mini):
     eng = TEngine.factory(module, 2, device="cpu", flow="fod")()
     assert eng.device.type == "cpu" and eng.flow == "fod"
     coords, mask, feats = lidar_scene(6, 100, grid=10)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TEngine(module, 2, device="cpu", engine="v1")
+    assert TEngine(module, 2, device="cpu",
+                   engine="v1").session.config.engine == "v1"
+    with pytest.raises(ValueError, match="unknown engine"):
+        TEngine(module, 2, device="cpu", engine="v3")
     # the batched surface runs on the CPU
     preds, hit = eng.segment_batch(coords[None], mask[None], feats[None])
     assert preds.shape == (1, 100) and hit is False

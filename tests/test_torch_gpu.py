@@ -685,7 +685,8 @@ def test_grouped_matmul_kernel_matches_plain_version(row_tile, eids, cin, cout,
     moved = {k: F.LAUNCHES[k] - before[k] for k in before}
     assert moved == {"grouped_matmul": 1,
                      "grouped_matmul_wgmma": int(kind == "wgmma"),
-                     "grouped_matmul_fma": int(kind == "fma")}
+                     "grouped_matmul_fma": int(kind == "fma"),
+                     "grouped_matmul_dx": 0, "grouped_matmul_dw": 0}
     if kind == "wgmma":   # the FMA kernel still takes these shapes
         fma = F.grouped_matmul_fma(x, eid, w, row_tile)
         torch.testing.assert_close(fma.float(), want.float(), **_tol(dtype))
@@ -749,3 +750,154 @@ def test_windowed_decode_over_a_longer_cache_runs_on_the_card(
     # device: float32 sums in another order), the rest is untouched
     for g, w in ((gcache.k.cpu(), wcache.k), (gcache.v.cpu(), wcache.v)):
         assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("row_tile,eids,cin,cout", [
+    (128, [0, 1, 1, 3, 3, 3], 1024, 512),      # an expert with no tile
+    (16, [2, -1, 9, 0, 0], 70, 130),           # odd widths, ids out of range
+    (64, [5, 5, 5], 64, 64)])
+def test_grouped_matmul_dw_kernel_matches_plain_version(row_tile, eids, cin,
+                                                        cout, dtype,
+                                                        record_property):
+    """The weight-gradient kernel against its plain version: float32 sums
+    (1e-4 of max|plain| at f32; bf16 output: 2e-2), zeros for an expert
+    without tiles, ids resolved as the forward resolves them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.kernels.grouped_matmul import grouped_matmul as GM
+    from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_dw_ref
+    rng = np.random.default_rng(len(eids) + cin)
+    dt = getattr(torch, dtype)
+    r, e = len(eids) * row_tile, 6
+    x = torch.from_numpy(rng.normal(size=(r, cin)).astype(np.float32))
+    dy = torch.from_numpy(rng.normal(size=(r, cout)).astype(np.float32))
+    x, dy = x.to("cuda", dt), dy.to("cuda", dt)
+    eid = torch.tensor(eids, dtype=torch.int32, device="cuda")
+    before = GM.LAUNCHES["grouped_matmul_dw"]
+    got = GM.grouped_matmul_dw_cuda(x, dy, eid, e, row_tile)
+    torch.cuda.synchronize()
+    assert GM.LAUNCHES["grouped_matmul_dw"] == before + 1
+    want = grouped_matmul_dw_ref(x, dy, eid, e, row_tile)
+    assert got.dtype == dt and got.shape == (e, cin, cout)
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    scale = float(want.float().abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    record_property("err_over_max_plain", err / scale)
+    assert err <= tol * scale
+    owned = {min(max(i + e if i < 0 else i, 0), e - 1) for i in eids}
+    for k in set(range(e)) - owned:
+        assert not got[k].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grouped_matmul_backward_on_the_card_matches_the_cpu(dtype,
+                                                            record_property):
+    """`ops.grouped_matmul`'s backward on the card (dX through the forward
+    kernel on the transposed weights, dW through its kernel) against the
+    same call on the CPU (the plain versions)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from repro_torch.kernels.grouped_matmul import grouped_matmul as GM
+    from repro_torch.kernels.grouped_matmul import ops as gmm_ops
+    rng = np.random.default_rng(9)
+    dt = getattr(torch, dtype)
+    eids = torch.tensor([0, 2, 2, 1], dtype=torch.int32)
+    x, w, g = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+               .to(dt) for s in ((512, 64), (4, 64, 96), (512, 96)))
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        xx = x.to(dev).detach().requires_grad_()
+        ww = w.to(dev).detach().requires_grad_()
+        before = dict(GM.LAUNCHES)
+        gmm_ops.grouped_matmul(xx, eids.to(dev), ww, 128).backward(g.to(dev))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert GM.LAUNCHES["grouped_matmul_dx"] == \
+                before["grouped_matmul_dx"] + 1
+            assert GM.LAUNCHES["grouped_matmul_dw"] == \
+                before["grouped_matmul_dw"] + 1
+        grads[dev] = (xx.grad.cpu().float(), ww.grad.cpu().float())
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    for name, got, want in zip(("dx", "dw"), grads["cuda"], grads["cpu"]):
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        record_property(f"{name}_err_over_max_plain", err / scale)
+        assert err <= tol * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kw", [dict(), dict(window=40, softcap=30.0)])
+def test_flash_attention_backward_on_the_card_matches_the_cpu(dtype, kw,
+                                                              record_property):
+    """`ops.flash_attention` forward through the kernel (wgmma at bf16 with
+    head_dim 64, FMA at f32) and its backward (the plain version
+    recomputed and differentiated) against the same call on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    rng = np.random.default_rng(10)
+    dt = getattr(torch, dtype)
+    q, k, v, g = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                  .to(dt) for s in ((2, 4, 200, 64), (2, 2, 200, 64),
+                                    (2, 2, 200, 64), (2, 4, 200, 64)))
+    res = {}
+    for dev in ("cpu", "cuda"):
+        qkv = [t.to(dev).detach().requires_grad_() for t in (q, k, v)]
+        before = FA.LAUNCHES["flash_attention"]
+        out = fa_ops.flash_attention(*qkv, **kw)
+        out.backward(g.to(dev))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert FA.LAUNCHES["flash_attention"] == before + 1
+        res[dev] = [out.detach()] + [t.grad for t in qkv]
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    for name, got, want in zip(("out", "dq", "dk", "dv"), res["cuda"],
+                               res["cpu"]):
+        got, want = got.cpu().float(), want.float()
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        record_property(f"{name}_err_over_max_plain", err / scale)
+        assert err <= tol * scale
+
+
+@pytest.mark.gpu
+def test_v1_segment_of_a_small_scene_on_the_card():
+    """A small scene through an engine="v1" PointCloudEngine on the card:
+    the fused kernel on every conv (13 sites of a mini-MinkUNet), labels
+    equal to the same engine on the CPU (plain versions) except at near
+    ties of the CPU logits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from repro_torch.data.synthetic import lidar_scene
+    from repro_torch.models import minkunet as MU
+    from repro_torch.serve.buckets import geometric_ladder
+    from repro_torch.serve.engine import PointCloudEngine
+    module = MU.mini_minkunet_init(torch.Generator().manual_seed(0))
+    coords, mask, feats = lidar_scene(3, 900, grid=24)
+    coords[mask, 1] += 40000              # outside the packed-key budget
+    from repro_torch.core import mapping as M
+    from repro_torch.serve.buckets import pad_scene
+    preds = {}
+    for dev in ("cpu", "cuda"):
+        eng = PointCloudEngine(module, 2, device=dev, engine="v1",
+                               ladder=geometric_ladder(256, 1024))
+        before = K.LAUNCHES["spconv_fod_fused_tc"]
+        preds[dev], _ = eng.segment(coords, mask, feats)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert K.LAUNCHES["spconv_fod_fused_tc"] == before + 13
+    # the CPU forward's logits (the plain flow over the same pyramid)
+    cpu = PointCloudEngine(module, 2, device="cpu", engine="v1",
+                           ladder=geometric_ladder(256, 1024))
+    levels, _ = cpu.levels_for(coords, mask)
+    c, m, f = pad_scene(coords, mask, feats, 1024)
+    logits = MU.minkunet_apply(cpu.module, M.PointCloud(
+        torch.from_numpy(c), torch.from_numpy(m), 1), torch.from_numpy(f),
+        flow="fod", levels=levels)[:900]
+    top2 = logits.topk(2, dim=-1).values
+    near = (top2[:, 0] - top2[:, 1]) < 1e-4
+    diff = (preds["cuda"].cpu() != preds["cpu"]) & torch.from_numpy(mask)
+    assert not bool((diff & ~near).any())

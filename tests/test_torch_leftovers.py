@@ -152,9 +152,13 @@ def test_sparse_conv_one_call_matches_reference(flow, ks, stride):
                                       np.asarray(want.pc.mask))
         np.testing.assert_array_equal(got.maps.inv.numpy(),
                                       np.asarray(want.maps.inv))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TSC.sparse_conv(tpc, torch.from_numpy(feats), torch.from_numpy(w),
-                        ks, stride=stride, engine="v1")
+    v1 = TSC.sparse_conv(tpc, torch.from_numpy(feats), torch.from_numpy(w),
+                         ks, stride=stride, flow=flow, engine="v1")
+    assert v1.maps.inv is None
+    np.testing.assert_allclose(v1.features.numpy(),
+                               np.asarray(want.features), **TOL)
+    np.testing.assert_array_equal(v1.pc.coords.numpy(),
+                                  np.asarray(want.pc.coords))
 
 
 def test_from_point_cloud_matches_reference():

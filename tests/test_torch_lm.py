@@ -249,7 +249,7 @@ def test_device_policy(granite, monkeypatch):
 
 def test_unported_paths_raise():
     from repro_torch.models import moe as TM
-    with pytest.raises(NotImplementedError, match="A.12"):
+    with pytest.raises(NotImplementedError, match="Queue A item 6"):
         TM.moe_apply(None, None, None, impl="ep")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TR.build(tget(ARCH).replace(family="audio"))

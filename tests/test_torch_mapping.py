@@ -183,8 +183,8 @@ def test_out_of_budget_raises_and_v1_is_not_ported():
     _, port_pc = both_clouds(coords, np.ones(2, bool))
     with pytest.raises(ValueError, match="outside the packed-key budget"):
         TM.sort_cloud(port_pc)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.build_conv_maps(port_pc, 3, 1, engine="v1")
+    maps, _ = TM.build_conv_maps(port_pc, 3, 1, engine="v1")
+    assert int(maps.valid.sum()) == 2            # each point with itself
 
 
 def test_pad_scene_digest_and_ladder_match_reference():

@@ -40,8 +40,9 @@ def test_mapping_cache_lru_counters_match_reference():
 def test_session_policy_and_transposed_errors():
     with pytest.raises(ValueError, match="unknown flow"):
         SessionConfig(flow="pallas_fused")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PointAccSession(engine="v1")
+    assert PointAccSession(engine="v1").config.engine == "v1"
+    with pytest.raises(ValueError, match="unknown engine"):
+        PointAccSession(engine="v3")
     coords, mask, feats = lidar_scene(1, 80, grid=10)
     session = PointAccSession(flow="cuda")
     x = session.tensor(torch.from_numpy(coords), torch.from_numpy(mask),
