@@ -9,7 +9,9 @@ Phases (any failure exits non-zero; none catches its own):
   1. device: the card's name and power limit (nvidia-smi).
   2. build: every `csrc/*.cu` of `repro_torch` with nvcc for sm_90a, one
      nvcc each, in parallel; `cuobjdump -sass` must show HGMMA (tensor-core
-     wgmma) in `grouped_matmul_wgmma_kernel` and in the
+     wgmma) in `grouped_matmul_wgmma_kernel`, in the
+     `grouped_matmul_dw_wgmma_kernel` the train step takes (tiles of
+     128 x 256; its registers and spills printed) and in the
      `flash_attention_wgmma_kernel` instance the prefill takes (head_dim
      64), and a 128-bit global load (LDG.E.128 or LDGSTS.128) in the
      `flash_decode_kernel` instance that the decode step's shapes take;
@@ -221,16 +223,23 @@ Phases (any failure exits non-zero; none catches its own):
      Launch counts, zeroed before each step and read after it: 48
      flash_attention (24 forward + 24 recomputed by remat; its backward
      recomputes through the plain version), 216 grouped_matmul (144
-     forward, 72 dX), 72 grouped_matmul_dw, all on the tensor-core
-     variants.  grouped_matmul_dw held against its plain version on the
-     first step's three calls of layer 23 at bf16 (8e-3 x max|plain|) and
-     f32 (1e-5), timed beside the plain version and torch.bmm, with its
-     bound.  Parity: one step's gradients at float32 with 2 layers at full
-     width, kernels against the plain versions with the kernel run's MoE
-     routing imposed: loss within 1e-4 relative, every gradient leaf within
-     1e-4 x max|plain leaf|; the same at bf16 within 5e-2; a
-     grouped_matmul_dw that writes expert 0's gradient as zeros must be
-     rejected.
+     forward, 72 dX), 72 grouped_matmul_dw (72 `grouped_matmul_dw_wgmma`,
+     0 `grouped_matmul_dw_fma`), all on the tensor-core variants.  The
+     MoE dispatch gathers differentiate through the dispatch's inverse
+     tables (`ops.dispatch_gather`), so the step runs no IndexBackward0
+     for them.  grouped_matmul_dw held against its plain version on the
+     first step's three calls of layer 23, each variant on its own type:
+     f32 through the FMA kernel (1e-5 x max|plain|), bf16 through the
+     tensor-core kernel (8e-3), and the FMA kernel on the bf16 operands
+     (8e-3); each check must move that variant's count; both kernels timed
+     at bf16 beside the plain version and torch.bmm, with the bound.
+     Parity: one step's gradients at float32 with 2 layers at full width,
+     kernels against the plain versions with the kernel run's MoE routing
+     imposed: loss within 1e-4 relative, every gradient leaf within 1e-4 x
+     max|plain leaf|; the same at bf16 within 5e-2; dW through the FMA
+     kernel at f32 and the tensor-core kernel at bf16 (counts checked).  At
+     each type a grouped_matmul_dw that writes expert 0's gradient as
+     zeros (through that type's kernel) must be rejected.
   13. a {"v1": ..., "train": ...} line, a {"kernels": [...]} line (seven
      kernels), the nvidia-smi line, and last the {"ok": true, "device":
      {...}} line.
@@ -241,7 +250,8 @@ PointNet++(s) forward (split into FPS, ball query, kNN, gathers and
 fused-MLP groups, with the forward's device time and that of the
 fused_mlp kernels, every variant), of one LM prefill and of four LM decode steps
 (device busy share, and the time of each LM kernel), and of one more train
-step (busy share, time by kernel name).
+step (busy share, time by kernel name, and the device time of the
+IndexBackward0, _DispatchGatherBackward and EmbeddingBackward nodes).
 """
 
 from __future__ import annotations
@@ -2176,7 +2186,8 @@ def lm_phases(dev, mem_rate: float, bf16_rate: float, with_profile: bool):
                    "grouped_matmul": 4 * 3 * cfg.n_layers,
                    "grouped_matmul_wgmma": 4 * 3 * cfg.n_layers,
                    "grouped_matmul_fma": 0, "grouped_matmul_dx": 0,
-                   "grouped_matmul_dw": 0,
+                   "grouped_matmul_dw": 0, "grouped_matmul_dw_wgmma": 0,
+                   "grouped_matmul_dw_fma": 0,
                    "flash_decode": n_dec * cfg.n_layers}
     print(f"LM main-path launches over 4 generate calls (4 prefills, {n_dec} "
           f"decode steps): {launches}")
@@ -2322,7 +2333,8 @@ def lm_phases(dev, mem_rate: float, bf16_rate: float, with_profile: bool):
     if l32 != {"flash_attention": n, "flash_attention_wgmma": 0,
                "flash_attention_fma": n, "grouped_matmul": 3 * n,
                "grouped_matmul_wgmma": 0, "grouped_matmul_fma": 3 * n,
-               "grouped_matmul_dx": 0, "grouped_matmul_dw": 0}:
+               "grouped_matmul_dx": 0, "grouped_matmul_dw": 0,
+               "grouped_matmul_dw_wgmma": 0, "grouped_matmul_dw_fma": 0}:
         raise AssertionError(f"f32 prefill launches {l32}, expected {n} "
                              f"flash_attention and {3 * n} grouped_matmul, "
                              f"all on the FMA kernels")
@@ -2479,7 +2491,8 @@ def train_phase(dev, mem_rate: float, bf16_rate: float,
                    "grouped_matmul": 2 * 3 * n + 3 * n,
                    "grouped_matmul_wgmma": 2 * 3 * n + 3 * n,
                    "grouped_matmul_fma": 0, "grouped_matmul_dx": 3 * n,
-                   "grouped_matmul_dw": 3 * n}
+                   "grouped_matmul_dw": 3 * n,
+                   "grouped_matmul_dw_wgmma": 3 * n, "grouped_matmul_dw_fma": 0}
     print(f"train: {LM_ARCH} full width ({n} layers, d_model {cfg.d_model}, "
           f"{cfg.n_experts} experts top-{cfg.topk}, vocab {cfg.vocab_size}), "
           f"{count_params(params) / 1e9:.3f} B float32 parameters "
@@ -2547,8 +2560,24 @@ def train_phase(dev, mem_rate: float, bf16_rate: float,
             p, state, _ = step(p, state, batch)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
-        print(prof.key_averages().table(sort_by="cuda_time_total",
-                                        row_limit=25))
+        averages = prof.key_averages()
+        print(averages.table(sort_by="cuda_time_total", row_limit=25))
+
+        def dev_ms(ev):
+            us = getattr(ev, "device_time_total", None)
+            return (ev.cuda_time_total if us is None else us) / 1e3
+        # the MoE gathers' backward (_DispatchGatherBackward) and any
+        # IndexBackward0 left (the embedding lookup's, once a step)
+        nodes = {ev.key: (dev_ms(ev), ev.count) for ev in averages
+                 if any(k in ev.key for k in ("IndexBackward0",
+                                              "DispatchGather",
+                                              "EmbeddingBackward"))}
+        print("train step autograd nodes (device ms, calls): "
+              + (", ".join(f"{k} {v[0]:.3f} ms x {v[1]}" for k, v in
+                           sorted(nodes.items())) or "none"))
+        if not any("DispatchGather" in k for k in nodes):
+            raise AssertionError("the profiled step ran no "
+                                 "_DispatchGatherBackward")
         events = [e for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA
                   and not getattr(e, "is_user_annotation", False)]
@@ -2558,6 +2587,7 @@ def train_phase(dev, mem_rate: float, bf16_rate: float,
                       for e in events if k in e.name) / 1e3
                for k in ("flash_attention_wgmma_kernel",
                          "grouped_matmul_wgmma_kernel",
+                         "grouped_matmul_dw_wgmma_kernel",
                          "grouped_matmul_dw_kernel", "gemm", "elementwise",
                          "reduce", "index", "scatter", "gather", "sort")}
         print(f"train step under the profiler: wall {wall:.1f} ms, device "
@@ -2566,35 +2596,52 @@ def train_phase(dev, mem_rate: float, bf16_rate: float,
               + ", ".join(f"{k} {v:.3f} ms" for k, v in per.items()))
     del p, state
 
-    # grouped_matmul_dw against its plain version at the step's shapes
-    # (bf16, and the same operands in float32), timed beside the plain
-    # version and torch.bmm over the (E, Cin, capacity) x (E, capacity,
-    # Cout) view, with its bound
-    dw = {"n": 0, "ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0,
-          "bytes": 0.0, "ops": 0.0, "err": 0.0, "rel": 0.0}
+    # grouped_matmul_dw against its plain version at the step's shapes, each
+    # variant on its own type: float32 through the FMA kernel, bf16 through
+    # the tensor-core kernel, and the FMA kernel on the bf16 operands too
+    # (the earlier design); timed at bf16 beside the plain version and
+    # torch.bmm over the (E, Cin, capacity) x (E, capacity, Cout) view, with
+    # its bound
+    dw = dict.fromkeys(("n", "ms", "fma", "plain", "lib", "bound", "bytes",
+                        "ops", "err", "rel", "err_f32", "rel_f32"), 0.0)
+    dw_keys = ("grouped_matmul_dw", "grouped_matmul_dw_wgmma",
+               "grouped_matmul_dw_fma")
     for j, (x, dy, eid, e, rt) in enumerate(dw_calls):
         cap = x.shape[0] // e
         if not torch.equal(eid.long(), torch.arange(e, device=dev)
                            .repeat_interleave(cap // rt)):
             raise AssertionError("the step's tile_eid is not sorted by "
                                  "expert in equal segments")
-        for dtype, tol in ((torch.float32, LM_KERNEL_F32_TOL),
-                           (torch.bfloat16, LM_BF16_TOL)):
+        for dtype, kind, fn, tol in (
+                (torch.float32, "fma", GMK.grouped_matmul_dw_cuda,
+                 LM_KERNEL_F32_TOL),
+                (torch.bfloat16, "wgmma", GMK.grouped_matmul_dw_cuda,
+                 LM_BF16_TOL),
+                (torch.bfloat16, "fma", GMK.grouped_matmul_dw_fma,
+                 LM_BF16_TOL)):
             xc, dyc = x.to(dtype), dy.to(dtype)
-            before = GMK.LAUNCHES["grouped_matmul_dw"]
-            got = GMK.grouped_matmul_dw_cuda(xc, dyc, eid, e, rt)
+            before = {k: GMK.LAUNCHES[k] for k in dw_keys}
+            got = fn(xc, dyc, eid, e, rt)
             want = grouped_matmul_dw_ref(xc, dyc, eid, e, rt)
             torch.cuda.synchronize()
             err = float((got.float() - want.float()).abs().max())
             scale = float(want.float().abs().max())
+            moved = {k: GMK.LAUNCHES[k] - before[k] for k in dw_keys}
             print(f"grouped_matmul_dw call {j} ({x.shape[0]} x {x.shape[1]} "
-                  f"-> {dy.shape[1]}, {e} experts), {dtype}: max abs err "
-                  f"{err:.2e}, max|plain| {scale:.3g}")
-            if GMK.LAUNCHES["grouped_matmul_dw"] != before + 1 or \
+                  f"-> {dy.shape[1]}, {e} experts), {dtype} through {kind}: "
+                  f"max abs err {err:.2e}, max|plain| {scale:.3g} "
+                  f"({err / scale:.2e}, tol {tol:g})")
+            if moved != {"grouped_matmul_dw": 1,
+                         "grouped_matmul_dw_wgmma": int(kind == "wgmma"),
+                         "grouped_matmul_dw_fma": int(kind == "fma")} or \
                     got.dtype != dtype or not err <= tol * scale:
-                raise AssertionError(f"grouped_matmul_dw disagrees with its "
-                                     f"plain version ({dtype})")
-            if dtype == torch.bfloat16:
+                raise AssertionError(f"grouped_matmul_dw ({kind}) disagrees "
+                                     f"with its plain version ({dtype}), or "
+                                     f"ran another kernel: launches {moved}")
+            if dtype == torch.float32:
+                dw["err_f32"] = max(dw["err_f32"], err)
+                dw["rel_f32"] = max(dw["rel_f32"], err / scale)
+            elif kind == "wgmma":
                 dw["err"] = max(dw["err"], err)
                 dw["rel"] = max(dw["rel"], err / scale)
         nbytes = x.element_size() * (x.numel() + dy.numel()
@@ -2605,6 +2652,9 @@ def train_phase(dev, mem_rate: float, bf16_rate: float,
         kernel = graph_ms(rotating([
             lambda a=a: GMK.grouped_matmul_dw_cuda(a[0], a[1], a[2], e, rt)
             for a in copies]), MLP_REPS)
+        fma = graph_ms(rotating([
+            lambda a=a: GMK.grouped_matmul_dw_fma(a[0], a[1], a[2], e, rt)
+            for a in copies]), MLP_REPS)
         lib = graph_ms(rotating([
             lambda a=a: torch.bmm(
                 a[0].view(e, cap, -1).transpose(1, 2),
@@ -2613,12 +2663,14 @@ def train_phase(dev, mem_rate: float, bf16_rate: float,
                         REPS)
         del copies
         b_bytes, b_ops = nbytes / mem_rate * 1e3, flops / bf16_rate * 1e3
-        print(f"grouped_matmul_dw call {j}: kernel {kernel:.4f} ms, plain "
-              f"{plain:.4f} ms, torch.bmm {lib:.4f} ms, bound "
-              f"{max(b_bytes, b_ops):.4f} ms ({'ops' if b_ops >= b_bytes else 'bytes'})")
-        for key, val in (("ms", kernel), ("plain", plain), ("lib", lib),
-                         ("bound", max(b_bytes, b_ops)), ("bytes", b_bytes),
-                         ("ops", b_ops)):
+        print(f"grouped_matmul_dw call {j} (bf16): wgmma kernel {kernel:.4f} "
+              f"ms (128 x 256 tiles), FMA kernel {fma:.4f} ms, "
+              f"plain {plain:.4f} ms, torch.bmm {lib:.4f} ms, bound "
+              f"{max(b_bytes, b_ops):.4f} ms ({'ops' if b_ops >= b_bytes else 'bytes'};"
+              f" bytes {b_bytes:.4f}, ops {b_ops:.4f})")
+        for key, val in (("ms", kernel), ("fma", fma), ("plain", plain),
+                         ("lib", lib), ("bound", max(b_bytes, b_ops)),
+                         ("bytes", b_bytes), ("ops", b_ops)):
             dw[key] += val
         dw["n"] += 1
     del dw_calls
@@ -2667,13 +2719,16 @@ def train_phase(dev, mem_rate: float, bf16_rate: float,
         if counts[f"flash_attention_{variant}"] != m2 or \
                 counts[f"grouped_matmul_{variant}"] != 3 * m2 + 3 * \
                 cfg2.n_layers or counts["grouped_matmul_dw"] != \
-                3 * cfg2.n_layers:
+                3 * cfg2.n_layers or counts[f"grouped_matmul_dw_{variant}"] \
+                != 3 * cfg2.n_layers:
             raise AssertionError(f"parity {label}: launches {counts}")
         g_p, loss_p = grads(grad_fn, routes, False, **plain_lm())
         ok, worst, leaf = compare(g_k, g_p, tol)
         loss_rel = abs(loss_k - loss_p) / abs(loss_p)
         parity[label] = {"loss_rel": loss_rel, "grad_rel": worst,
-                         "leaf": leaf}
+                         "leaf": leaf, "dw_launches": {
+                             v: counts[f"grouped_matmul_dw_{v}"]
+                             for v in ("wgmma", "fma")}}
         print(f"train parity {label} (2 layers at full width, "
               f"{TRAIN_BATCH} x {TRAIN_SEQ}, the kernel run's routing "
               f"imposed on the plain run): loss {loss_k:.6f} vs plain "
@@ -2682,36 +2737,55 @@ def train_phase(dev, mem_rate: float, bf16_rate: float,
               f"max|plain leaf| (tol {tol:g}); launches {counts}")
         if not ok or not loss_rel <= tol:
             raise AssertionError(f"train parity {label} fails")
-        if label == "f32":
-            def dw_zero_expert0(x, dy, tile_eid, n_experts, row_tile=128):
-                out = real_dw(x, dy, tile_eid, n_experts, row_tile)
-                out[0] = 0
-                return out
-            gmm_ops.grouped_matmul_dw_cuda = dw_zero_expert0
-            try:
-                g_bad, _ = grads(grad_fn, routes, False)
-            finally:
-                gmm_ops.grouped_matmul_dw_cuda = real_dw
-            ok_c, worst_c, leaf_c = compare(g_bad, g_p, tol)
-            print(f"train negative control (f32): grouped_matmul_dw writing "
-                  f"expert 0's gradient as zeros: worst leaf {leaf_c} at "
-                  f"{worst_c:.2e} -> {'ACCEPTED' if ok_c else 'rejected'}")
-            if ok_c:
-                raise AssertionError("the train parity check accepts a dW "
-                                     "without expert 0")
-        del g_k, g_p
+        # negative control at this type, through this type's dW kernel
+        def dw_zero_expert0(x, dy, tile_eid, n_experts, row_tile=128):
+            out = real_dw(x, dy, tile_eid, n_experts, row_tile)
+            out[0] = 0
+            return out
+        GMK.reset_launch_counts()
+        gmm_ops.grouped_matmul_dw_cuda = dw_zero_expert0
+        try:
+            g_bad, _ = grads(grad_fn, routes, False)
+        finally:
+            gmm_ops.grouped_matmul_dw_cuda = real_dw
+        ran = GMK.LAUNCHES[f"grouped_matmul_dw_{variant}"]
+        ok_c, worst_c, leaf_c = compare(g_bad, g_p, tol)
+        parity[label]["control_rel"] = worst_c
+        print(f"train negative control ({label}): grouped_matmul_dw "
+              f"({variant}, {ran} launches) writing expert 0's gradient as "
+              f"zeros: worst leaf {leaf_c} at {worst_c:.2e} (tol {tol:g}) -> "
+              f"{'ACCEPTED' if ok_c else 'rejected'}")
+        if ran != 3 * cfg2.n_layers:
+            raise AssertionError(f"the {label} negative control ran {ran} "
+                                 f"grouped_matmul_dw_{variant} launches")
+        if ok_c:
+            raise AssertionError(f"the {label} train parity check accepts a "
+                                 f"dW without expert 0")
+        del g_k, g_p, g_bad
     print(f"train part: {time.perf_counter() - t_train:.1f} s wall")
     n_dw = dw["n"]
+    src = "src/repro_torch/kernels/grouped_matmul/csrc/"
     entry = {
         "name": "grouped_matmul_dw", "route": "cuda",
-        "source": "src/repro_torch/kernels/grouped_matmul/csrc/"
-                  "grouped_matmul_dw.cu",
+        "source": src + "grouped_matmul_dw_wgmma.cu",
+        "sources": {"wgmma": src + "grouped_matmul_dw_wgmma.cu",
+                    "fma": src + "grouped_matmul_dw.cu"},
         "replaces": "src/repro/kernels/grouped_matmul/grouped_matmul.py:48 "
                     "(its weight gradient: no TPU kernel, the reference "
                     "trains through grouped_matmul_ref)",
         "launches": launches_total["grouped_matmul_dw"],
+        "launches_by_variant": {v: launches_total[f"grouped_matmul_dw_{v}"]
+                                for v in ("wgmma", "fma")},
+        "parity_launches_by_variant": {k: v["dw_launches"]
+                                       for k, v in parity.items()},
         "max_abs_err": dw["err"], "max_rel_err": dw["rel"],
-        "ms": dw["ms"] / n_dw, "plain_ms": dw["plain"] / n_dw,
+        "max_rel_err_f32_fma": dw["rel_f32"],
+        "ms": dw["ms"] / n_dw, "kernel_ms": dw["ms"] / n_dw,
+        "tile": "128 x 256",
+        "earlier_ms": dw["fma"] / n_dw,
+        "earlier": "float32-FMA kernel (csrc/grouped_matmul_dw.cu) on the "
+                   "same bf16 operands",
+        "plain_ms": dw["plain"] / n_dw,
         "bound_ms": dw["bound"] / n_dw,
         "bound_by": "operations" if dw["ops"] >= dw["bytes"] else "bytes",
         "library_ms": dw["lib"] / n_dw,
@@ -2806,6 +2880,20 @@ def main(argv) -> int:
         raise AssertionError("no HGMMA in grouped_matmul_wgmma_kernel's SASS")
     print(f"SASS: grouped_matmul_wgmma_kernel holds {len(hgmma)} HGMMA "
           f"instructions, e.g. {hgmma[0].split(';')[0]}")
+    # so does the bf16 weight gradient of the train step
+    dw_name = "grouped_matmul_dw_wgmma_kernel"
+    dw_regs = [v for k, v in ptxas_kernels(build.build_log.get(
+        "grouped_matmul_dw_wgmma", "")).items() if dw_name in k]
+    if len(dw_regs) != 1:
+        raise AssertionError(f"ptxas reports {len(dw_regs)} kernels named "
+                             f"{dw_name}")
+    hgmma = sass_lines(libs["grouped_matmul_dw_wgmma"], dw_name, "HGMMA")
+    if not hgmma:
+        raise AssertionError(f"no HGMMA in {dw_name}'s SASS")
+    print(f"SASS: {dw_name} (the train step's dW) holds {len(hgmma)} HGMMA "
+          f"instructions, e.g. {hgmma[0].split(';')[0]}; ptxas: "
+          f"{dw_regs[0][0]} registers, spill stores/loads {dw_regs[0][1]}/"
+          f"{dw_regs[0][2]} bytes")
     # so does the bf16 prefill's attention, in the head_dim instance it takes
     fa_name = f"flash_attention_wgmma_kernelILi{hd}E"
     fa_regs = [v for k, v in ptxas_kernels(build.build_log.get(

@@ -13,7 +13,10 @@ equal the reference's.
     dX (dY against the transposed weights) and the weight-gradient kernel
     for dW (`grouped_matmul_dw_cuda`), the plain versions on the CPU.
   * `sorted_moe_ffn` — the whole sorted-dispatch expert FFN: three
-    `grouped_matmul` calls (w_in, w_gate, w_out).
+    `grouped_matmul` calls (w_in, w_gate, w_out) between two masked row
+    gathers (`dispatch_gather`: tokens into the sorted rows, rows back to
+    the (token, choice) assignments), whose backward is a gather through
+    the dispatch's inverse table, not an accumulating scatter.
 """
 
 from __future__ import annotations
@@ -109,6 +112,56 @@ def grouped_matmul(x: torch.Tensor, tile_eid: torch.Tensor,
                                 weights.contiguous(), row_tile)
 
 
+def _assignment_of_rows(disp: Dispatch) -> torch.Tensor:
+    """The inverse of `disp.dest_row`: (rows, 1) int64, the assignment
+    t * topk + k kept in each row, -1 for a padding row.  An integer
+    scatter of unique entries (dropped assignments write one extra row,
+    cut off)."""
+    flat = disp.dest_row.reshape(-1).long()
+    out = torch.full((disp.n_rows + 1,), -1, dtype=torch.int64,
+                     device=flat.device)
+    out[torch.where(flat >= 0, flat, disp.n_rows)] = torch.arange(
+        flat.numel(), device=flat.device)
+    return out[:disp.n_rows, None]
+
+
+def _masked_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Row idx[...] of src (n, D), zeros where idx < 0 -> idx.shape + (D,)."""
+    idx = idx.long()
+    return torch.where((idx >= 0)[..., None], src[idx.clamp(min=0)],
+                       torch.zeros((), dtype=src.dtype, device=src.device))
+
+
+class _DispatchGather(torch.autograd.Function):
+    """`_masked_rows(src, idx)` whose backward gathers too: `inv` (n, m)
+    lists, for each row of src, the flat positions of idx that read it (-1
+    for none), so d src[i] = the sum over j of d out.view(-1, D)[inv[i, j]]
+    where inv[i, j] >= 0 — the same sums as the scatter that autograd of an
+    index would run, taken by a gather and a sum over m, with no atomics and
+    no sort."""
+
+    @staticmethod
+    def forward(ctx, src, idx, inv):
+        ctx.save_for_backward(inv)
+        return _masked_rows(src, idx)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        inv, = ctx.saved_tensors
+        d = _masked_rows(g.reshape(-1, g.shape[-1]), inv).sum(dim=1)
+        return d, None, None
+
+
+def dispatch_gather(src: torch.Tensor, idx: torch.Tensor,
+                    inv: torch.Tensor) -> torch.Tensor:
+    """where(idx >= 0, src[idx], 0), differentiable in src through the
+    inverse table `inv` (see `_DispatchGather`); every flat position of idx
+    that reads a row must appear once in that row's line of inv.  `inv`
+    may be None where no gradient is asked of src."""
+    return _DispatchGather.apply(src, idx, inv)
+
+
 def sorted_moe_ffn(x: torch.Tensor, expert_idx: torch.Tensor,
                    gates: torch.Tensor, w_in: torch.Tensor,
                    w_out: torch.Tensor, *, capacity_factor: float = 1.25,
@@ -125,9 +178,9 @@ def sorted_moe_ffn(x: torch.Tensor, expert_idx: torch.Tensor,
     capacity = _round_up(int(t * topk * capacity_factor / e) + 1, row_tile)
     disp = make_dispatch(expert_idx, e, capacity, row_tile)
 
-    src = disp.src_token.long()
-    xs = torch.where((src >= 0)[:, None], x[src.clamp(min=0)],
-                     torch.zeros((), dtype=x.dtype, device=x.device))
+    # tokens into sorted rows; the backward sums each token's rows through
+    # dest_row, the inverse of src_token
+    xs = dispatch_gather(x, disp.src_token, disp.dest_row)     # (rows, D)
     h = grouped_matmul(xs, disp.tile_eid, w_in, row_tile)
     if w_gate is not None:
         g = grouped_matmul(xs, disp.tile_eid, w_gate, row_tile)
@@ -136,8 +189,8 @@ def sorted_moe_ffn(x: torch.Tensor, expert_idx: torch.Tensor,
         h = act(h)
     y = grouped_matmul(h, disp.tile_eid, w_out, row_tile)      # (rows, D)
 
-    # combine: gather each assignment's row, weight by gate, sum over topk
-    dest = disp.dest_row.long()
-    picked = torch.where((dest >= 0)[..., None], y[dest.clamp(min=0)],
-                         torch.zeros((), dtype=y.dtype, device=y.device))
+    # combine: gather each assignment's row, weight by gate, sum over topk;
+    # the backward takes each row's one assignment through src_assign
+    src_assign = _assignment_of_rows(disp) if y.requires_grad else None
+    picked = dispatch_gather(y, disp.dest_row, src_assign)      # (T, topk, D)
     return (picked * gates[..., None]).sum(dim=1).to(x.dtype)

@@ -686,7 +686,8 @@ def test_grouped_matmul_kernel_matches_plain_version(row_tile, eids, cin, cout,
     assert moved == {"grouped_matmul": 1,
                      "grouped_matmul_wgmma": int(kind == "wgmma"),
                      "grouped_matmul_fma": int(kind == "fma"),
-                     "grouped_matmul_dx": 0, "grouped_matmul_dw": 0}
+                     "grouped_matmul_dx": 0, "grouped_matmul_dw": 0,
+                     "grouped_matmul_dw_wgmma": 0, "grouped_matmul_dw_fma": 0}
     if kind == "wgmma":   # the FMA kernel still takes these shapes
         fma = F.grouped_matmul_fma(x, eid, w, row_tile)
         torch.testing.assert_close(fma.float(), want.float(), **_tol(dtype))
@@ -752,22 +753,45 @@ def test_windowed_decode_over_a_longer_cache_runs_on_the_card(
         assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
 
 
+def _dw_check(got, x, dy, eid, e, row_tile, dtype):
+    """got against the plain version: float32 sums (1e-4 of max|plain| at
+    f32; bf16 output: 2e-2), zeros for an expert without tiles.  Returns
+    the error over max|plain|."""
+    from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_dw_ref
+    want = grouped_matmul_dw_ref(x, dy, eid, e, row_tile)
+    assert got.dtype == x.dtype and got.shape == want.shape
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    scale = float(want.float().abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= tol * scale, (err, scale)
+    owned = {min(max(i + e if i < 0 else i, 0), e - 1)
+             for i in eid.tolist()}
+    for k in set(range(e)) - owned:
+        assert not got[k].any()
+    return err / scale
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("row_tile,eids,cin,cout", [
     (128, [0, 1, 1, 3, 3, 3], 1024, 512),      # an expert with no tile
     (16, [2, -1, 9, 0, 0], 70, 130),           # odd widths, ids out of range
-    (64, [5, 5, 5], 64, 64)])
+    (64, [5, 5, 5], 64, 64),
+    (64, [1, 0, 1, 2, 1], 512, 256),           # expert 1's tiles apart
+    # tails (200 = 128 + 72 channels, 136 = 128 + 8 columns); ids out of
+    # range: -2 wraps to 4, 11 clamps to 5; experts 0-3 own nothing
+    (128, [4, -2, 11, 4], 200, 136),
+    (64, [-1, 3, 3, -7, 0], 8, 264)])          # -1 -> 5, -7 -> 0; Cin 8
 def test_grouped_matmul_dw_kernel_matches_plain_version(row_tile, eids, cin,
                                                         cout, dtype,
                                                         record_property):
-    """The weight-gradient kernel against its plain version: float32 sums
-    (1e-4 of max|plain| at f32; bf16 output: 2e-2), zeros for an expert
-    without tiles, ids resolved as the forward resolves them."""
+    """The weight-gradient kernel that `dw_variant` names against its plain
+    version (bf16 with widths of 8 and 64-row tiles: the tensor-core
+    kernel; the rest: the FMA kernel), with the per-variant launch count;
+    the FMA kernel takes every shape."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     from repro_torch.kernels.grouped_matmul import grouped_matmul as GM
-    from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_dw_ref
     rng = np.random.default_rng(len(eids) + cin)
     dt = getattr(torch, dtype)
     r, e = len(eids) * row_tile, 6
@@ -775,20 +799,110 @@ def test_grouped_matmul_dw_kernel_matches_plain_version(row_tile, eids, cin,
     dy = torch.from_numpy(rng.normal(size=(r, cout)).astype(np.float32))
     x, dy = x.to("cuda", dt), dy.to("cuda", dt)
     eid = torch.tensor(eids, dtype=torch.int32, device="cuda")
-    before = GM.LAUNCHES["grouped_matmul_dw"]
+    kind = "wgmma" if dtype == "bfloat16" and row_tile % 64 == 0 and \
+        cin % 8 == 0 and cout % 8 == 0 else "fma"
+    assert GM.dw_variant(dt, cin, cout, row_tile) == kind
+    keys = ("grouped_matmul_dw", "grouped_matmul_dw_wgmma",
+            "grouped_matmul_dw_fma")
+    before = {k: GM.LAUNCHES[k] for k in keys}
     got = GM.grouped_matmul_dw_cuda(x, dy, eid, e, row_tile)
     torch.cuda.synchronize()
-    assert GM.LAUNCHES["grouped_matmul_dw"] == before + 1
-    want = grouped_matmul_dw_ref(x, dy, eid, e, row_tile)
-    assert got.dtype == dt and got.shape == (e, cin, cout)
+    assert {k: GM.LAUNCHES[k] - before[k] for k in keys} == {
+        "grouped_matmul_dw": 1, "grouped_matmul_dw_wgmma": int(kind == "wgmma"),
+        "grouped_matmul_dw_fma": int(kind == "fma")}
+    record_property("err_over_max_plain",
+                    _dw_check(got, x, dy, eid, e, row_tile, dtype))
+    if row_tile % 16 == 0:
+        fma = GM.grouped_matmul_dw_fma(x, dy, eid, e, row_tile)
+        _dw_check(fma, x, dy, eid, e, row_tile, dtype)
+    if kind == "fma":
+        with pytest.raises(ValueError):
+            GM.grouped_matmul_dw_wgmma(x, dy, eid, e, row_tile)
+
+
+@pytest.mark.gpu
+def test_grouped_matmul_dw_wgmma_over_many_tiles():
+    """300 row tiles of 64 rows (more ids than a warp ballots at once, and
+    more output tiles than CTAs in the persistent grid), experts drawn at
+    random with ids out of range, against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.kernels.grouped_matmul import grouped_matmul as GM
+    rng = np.random.default_rng(256)
+    # 5 x 3 tiles of 128 x 256 an expert, 150 in all: more than the SMs;
+    # 520 = 4 x 128 + 8 channels and 2 x 256 + 8 columns leave tails
+    n_tiles, rt, e, cin, cout = 300, 64, 10, 520, 520
+    x, dy = (torch.from_numpy(rng.normal(size=(n_tiles * rt, c)).astype(
+        np.float32)).to("cuda", torch.bfloat16) for c in (cin, cout))
+    eid = torch.from_numpy(rng.integers(-3, 9, n_tiles).astype(np.int32))
+    eid = eid.cuda()
+    got = GM.grouped_matmul_dw_wgmma(x, dy, eid, e, rt)
+    torch.cuda.synchronize()
+    _dw_check(got, x, dy, eid, e, rt, "bfloat16")
+
+
+MOE_CARD_EXPERTS, MOE_CARD_ROW_TILE = 4, 128
+
+
+def sorted_moe_card_inputs():
+    """Seeded inputs of the card's sorted-MoE backward test, also held to
+    `jax.grad` of the reference on the CPU (tests/test_torch_moe_backward.py):
+    T 200, D 64, F 96, 4 experts, top 2, expert 3 past its capacity.
+    Returns (expert_idx int32, arrays by name, cotangent float32)."""
+    rng = np.random.default_rng(12)
+    t, d, f, e, topk = 200, 64, 96, MOE_CARD_EXPERTS, 2
+    idx = np.stack([rng.permutation(e)[:topk] for _ in range(t)])
+    hot = rng.random(t) < 0.7            # expert 3 past its capacity
+    idx[hot] = np.where(idx[hot] == 3, idx[hot][:, ::-1], idx[hot])
+    idx[hot, 0] = 3
+    gates = rng.random((t, topk))
+    gates /= gates.sum(-1, keepdims=True)
+    arrays = {"x": rng.normal(size=(t, d)), "gates": gates,
+              "w_in": rng.normal(size=(e, d, f)) / 8,
+              "w_out": rng.normal(size=(e, f, d)) / 10,
+              "w_gate": rng.normal(size=(e, d, f)) / 8}
+    cot = rng.normal(size=(t, d)).astype(np.float32)
+    return idx.astype(np.int32), arrays, cot
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sorted_moe_ffn_backward_on_the_card_matches_the_cpu(dtype,
+                                                            record_property):
+    """`sorted_moe_ffn`'s gradients for x, gates, w_in, w_gate and w_out on
+    the card (the kernels, the gathers' inverse-table backward) against
+    the same call on the CPU (the plain versions), with capacity drops
+    and padding rows; dW through the FMA kernel at f32 and the tensor-core
+    kernel at bf16.  The CPU's gradients on these inputs are held to the
+    reference's `jax.grad` in tests/test_torch_moe_backward.py."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from repro_torch.kernels.grouped_matmul import grouped_matmul as GM
+    from repro_torch.kernels.grouped_matmul import ops as gmm_ops
+    idx, named, cot = sorted_moe_card_inputs()
+    idx, cot = torch.from_numpy(idx), torch.from_numpy(cot)
+    arrays = list(named.values())
+    dt = getattr(torch, dtype)
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        leaves = [torch.from_numpy(np.asarray(a, np.float32)).to(dev, dt)
+                  .requires_grad_() for a in arrays]
+        before = dict(GM.LAUNCHES)
+        out = gmm_ops.sorted_moe_ffn(leaves[0], idx.to(dev), leaves[1],
+                                     leaves[2], leaves[3], w_gate=leaves[4],
+                                     row_tile=MOE_CARD_ROW_TILE)
+        (out.float() * cot.to(dev)).sum().backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            kind = "wgmma" if dtype == "bfloat16" else "fma"
+            assert GM.LAUNCHES[f"grouped_matmul_dw_{kind}"] == \
+                before[f"grouped_matmul_dw_{kind}"] + 3
+        grads[dev] = [leaf.grad.cpu().float() for leaf in leaves]
     tol = 1e-4 if dtype == "float32" else 2e-2
-    scale = float(want.float().abs().max())
-    err = float((got.float() - want.float()).abs().max())
-    record_property("err_over_max_plain", err / scale)
-    assert err <= tol * scale
-    owned = {min(max(i + e if i < 0 else i, 0), e - 1) for i in eids}
-    for k in set(range(e)) - owned:
-        assert not got[k].any()
+    for name, got, want in zip(named, grads["cuda"], grads["cpu"]):
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        record_property(f"{name}_err_over_max_plain", err / scale)
+        assert scale > 0 and err <= tol * scale, (name, err, scale)
 
 
 @pytest.mark.gpu
