@@ -240,9 +240,38 @@ Phases (any failure exits non-zero; none catches its own):
      kernel at f32 and the tensor-core kernel at bf16 (counts checked).  At
      each type a grouped_matmul_dw that writes expert 0's gradient as
      zeros (through that type's kernel) must be rejected.
-  13. a {"v1": ..., "train": ...} line, a {"kernels": [...]} line (seven
-     kernels), the nvidia-smi line, and last the {"ok": true, "device":
-     {...}} line.
+  13. trainer: `repro_torch.launch.train` (the launcher a user runs) at
+     the full width and depth of granite-moe-1b-a400m with `--compute-dtype
+     bfloat16 --batch 4 --seq 512 --lr 1e-3 --log-every 1
+     --lr-total-steps 6`.  U: `main([... --steps 6])` in-process; each
+     step's `step_s` (the launcher's StepTimer, stopped once the step's
+     metrics are read), training tokens/s, peak memory, the model FLOPs of
+     a step (`launch/flops.cell_flops`, remat) and their share of the
+     dense bf16 peak are printed; launch counts, zeroed before step 2 and
+     read after it, must be phase 12's (48 flash_attention, 216
+     grouped_matmul of them 72 dX, 72 grouped_matmul_dw; all wgmma).  A:
+     the same command as a subprocess with `--ckpt-dir` under build/ (the
+     free disk, printed, must hold two checkpoints), sent SIGTERM once it
+     has printed its step 1 line: it must print `[preempt] saving final
+     checkpoint`, exit 0 and leave a committed step k >= 2 in the
+     directory and its `opt/` (the save's wall, from the `[preempt]` line
+     to the `opt` COMMIT stamp, and its bytes printed).  B: `main` resumed
+     from it in-process: `[resume] step k`, losses at steps k..5 within
+     2e-3 relative of U's (restore wall printed).  One `--accum 2` step on
+     U's first batch: loss within 1e-2 relative of U's step 0, grad norm
+     within 5e-2 of the norm of the mean of the two half-batches' gradients
+     (`make_grad_fn` through the kernels; the MoE load-balance loss is a
+     product of batch means, so U's step-0 grad norm is printed beside it,
+     not checked).  The checkpoints are removed.  Then qwen1.5-4b,
+     qwen1.5-32b, granite-34b and mixtral-8x7b at full width with 2
+     layers: one bf16 `train_logits` of 2 x 512 tokens through the kernels
+     against the plain path (mixtral: the plain run's routing imposed)
+     within 5e-2 x max|plain|, launches by the variant `variant` names
+     (granite-34b's 48 query heads a kv head take the FMA attention).
+  14. a {"v1": ..., "train": {..., "trainer": ...}} line, a {"kernels":
+     [...]} line (seven kernels; flash_attention, grouped_matmul and
+     grouped_matmul_dw carry phase 13's counts as `trainer_launches`), the
+     nvidia-smi line, and last the {"ok": true, "device": {...}} line.
 
 `--profile` adds torch.profiler tables of one segment hit and one miss
 (each with its wall, device time, busy share and spconv kernel time), of one
@@ -322,6 +351,14 @@ LM_BF16_PATH_TOL = 5e-2      # teacher-forced logits at bf16
 LM_NEAR_TIE = {"f32": 1e-4, "bf16": 2.0 ** -5}  # routing flips: gap / p_k
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 3   # phase 12
 TRAIN_LR = 1e-3
+TRAINER_STEPS = 6            # phase 13: steps of each launcher run, and the
+                             # fixed --lr-total-steps
+TRAINER_STEADY = 2           # the step whose launches are counted
+TRAINER_RESUME_TOL = 2e-3    # resumed losses vs uninterrupted (relative)
+TRAINER_ACCUM_TOL = {"loss": 1e-2, "grad_norm": 5e-2}  # --accum 2 (relative)
+TRAINER_TIMEOUT_S = 420      # the preempted subprocess's deadline
+CONFIG_ARCHS = ("qwen1.5-4b", "qwen1.5-32b", "granite-34b", "mixtral-8x7b")
+CONFIG_LAYERS, CONFIG_BATCH, CONFIG_SEQ = 2, 2, 512   # their forwards
 
 
 def smi_line() -> str:
@@ -2799,6 +2836,414 @@ def train_phase(dev, mem_rate: float, bf16_rate: float,
     return {"entry": entry, "steps": rows, "parity": parity}
 
 
+class _Tee:
+    """A text stream that writes through to `out` and keeps a copy."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+def step_lines(text: str) -> dict:
+    """{step: loss} from the launcher's `step N loss X ...` lines."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith("step "):
+            parts = line.split()
+            out[int(parts[1])] = float(parts[3])
+    return out
+
+
+def run_preempted(cmd, env, deadline_s: float):
+    """Start the launcher `cmd`, send it SIGTERM once it has printed its
+    `step 1` line, and read it to its end.  Returns (exit code, its lines,
+    time.time() when its `[preempt]` line was read).  The process is killed
+    if it outlives `deadline_s`."""
+    import queue
+    import signal
+    import threading
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, env=env,
+                            cwd=str(ROOT))
+    lines_q: queue.Queue = queue.Queue()
+
+    def pump():
+        for line in proc.stdout:
+            lines_q.put(line)
+        lines_q.put(None)
+    threading.Thread(target=pump, daemon=True).start()
+    lines, t_preempt, sent = [], None, False
+    end = time.monotonic() + deadline_s
+    try:
+        while True:
+            line = lines_q.get(timeout=max(0.1, end - time.monotonic()))
+            if line is None:
+                break
+            lines.append(line)
+            print(f"  [A] {line.rstrip()}", flush=True)
+            if not sent and line.startswith("step ") and \
+                    line.split()[1] == "1":
+                proc.send_signal(signal.SIGTERM)
+                sent = True
+            if line.startswith("[preempt]"):
+                t_preempt = time.time()
+        rc = proc.wait(timeout=max(1.0, end - time.monotonic()))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if not sent:
+        raise AssertionError("the preempted run never printed its step 1 "
+                             "line")
+    return rc, lines, t_preempt
+
+
+def dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def trainer_phase(dev, bf16_rate: float) -> dict:
+    """Phase 13: the launcher `repro_torch.launch.train` at the full width
+    of granite-moe-1b-a400m (see the module docstring).  Returns its
+    numbers for the JSON line."""
+    import os
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import store
+    from repro_torch.configs import get as get_config
+    from repro_torch.kernels.flash_attention import flash_attention as FAK
+    from repro_torch.kernels.grouped_matmul import grouped_matmul as GMK
+    from repro_torch.launch import train as TRAIN
+    from repro_torch.launch.flops import cell_flops
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.models import registry
+    from repro_torch.nn import count_params
+
+    t_phase = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    n = cfg.n_layers
+    args = ["--arch", LM_ARCH, "--compute-dtype", "bfloat16", "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--lr", f"{TRAIN_LR:g}",
+            "--log-every", "1", "--lr-total-steps", str(TRAINER_STEPS),
+            "--steps", str(TRAINER_STEPS)]
+    want_launch = {"flash_attention": 2 * n, "flash_attention_wgmma": 2 * n,
+                   "flash_attention_fma": 0,
+                   "grouped_matmul": 2 * 3 * n + 3 * n,
+                   "grouped_matmul_wgmma": 2 * 3 * n + 3 * n,
+                   "grouped_matmul_fma": 0, "grouped_matmul_dx": 3 * n,
+                   "grouped_matmul_dw": 3 * n,
+                   "grouped_matmul_dw_wgmma": 3 * n, "grouped_matmul_dw_fma": 0}
+    flops = cell_flops(cfg, ShapeSpec("trainer", "train", TRAIN_SEQ,
+                                      TRAIN_BATCH), remat=True)["total"]
+    print(f"trainer: python -m repro_torch.launch.train {' '.join(args)} "
+          f"(full width, float32 weights from torch.Generator(cuda)"
+          f".manual_seed(0)); model FLOPs a step {flops / 1e12:.4f} T "
+          f"(launch/flops.cell_flops, remat)")
+
+    def collect(rows, launches=None):
+        def on_step(step, met, stats):
+            if launches is not None:
+                if step == TRAINER_STEADY:
+                    launches.update({k: {**FAK.LAUNCHES, **GMK.LAUNCHES}[k]
+                                     for k in want_launch})
+                FAK.reset_launch_counts()
+                GMK.reset_launch_counts()
+            rows[step] = {**met, "step_s": stats["step_s"],
+                          "straggler": stats["straggler"]}
+        return on_step
+
+    def launcher(argv, on_step):
+        tee = _Tee(sys.stdout)
+        with contextlib.redirect_stdout(tee):
+            losses = TRAIN.main(argv, on_step=on_step)
+        return losses, tee.text()
+
+    root = ROOT / "build" / f"trainer_ckpt_{os.getpid()}"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        # U: uninterrupted, in-process
+        u_rows, launches = {}, {}
+        FAK.reset_launch_counts()
+        GMK.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        u_losses, _ = launcher(args, collect(u_rows, launches))
+        u_wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        if sorted(u_rows) != list(range(TRAINER_STEPS)) or \
+                not all(np.isfinite(r["loss"]) for r in u_rows.values()):
+            raise AssertionError(f"run U: steps {sorted(u_rows)}")
+        steady = [u_rows[s]["step_s"] for s in range(1, TRAINER_STEPS)]
+        step_s = statistics.median(steady)
+        tokens_s = TRAIN_BATCH * TRAIN_SEQ / step_s
+        share = flops / step_s / bf16_rate
+        print(smi_line())
+        for s, r in sorted(u_rows.items()):
+            print(f"trainer U step {s}: step_s {r['step_s'] * 1e3:.1f} ms "
+                  f"(StepTimer{', straggler' if r['straggler'] else ''}), "
+                  f"{TRAIN_BATCH * TRAIN_SEQ / r['step_s']:.0f} training "
+                  f"tokens/s; loss {r['loss']:.5f}, grad_norm "
+                  f"{r['grad_norm']:.4f}, lr {r['lr']:.3g}")
+        print(f"trainer U: median steady step {step_s * 1e3:.1f} ms, "
+              f"{tokens_s:.0f} training tokens/s, peak memory {peak:.2f} GiB,"
+              f" {flops / step_s / 1e12:.2f} model TFLOP/s = {share:.2%} of "
+              f"the dense bf16 peak ({bf16_rate / 1e12:g} TFLOP/s); "
+              f"{u_wall:.1f} s for {TRAINER_STEPS} steps")
+        print(f"trainer launches of step {TRAINER_STEADY} (zeroed before it, "
+              f"read after): {launches}")
+        if launches != want_launch:
+            raise AssertionError(f"trainer step {TRAINER_STEADY}: launches "
+                                 f"{launches}, expected {want_launch}")
+
+        # A: preempted, a subprocess, with a checkpoint directory
+        model = registry.build(cfg)
+        probe = model.init(torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+        n_params = count_params(probe)
+        del probe
+        torch.cuda.empty_cache()        # the subprocess needs the memory
+        ckpt_bytes = 3 * 4 * n_params   # float32 params, m and v
+        root.mkdir(parents=True)
+        free = shutil.disk_usage(root).free
+        print(f"trainer checkpoint: about {ckpt_bytes / 1e9:.2f} GB a step "
+              f"({n_params} float32 parameters, m and v); free disk under "
+              f"{root.parent}: {free / 1e9:.2f} GB")
+        if free < 2 * ckpt_bytes:
+            raise AssertionError(
+                f"not enough disk for phase 13's checkpoints: "
+                f"{free / 1e9:.2f} GB free under {root.parent}, "
+                f"{2 * ckpt_bytes / 1e9:.2f} GB needed (twice one checkpoint)")
+        ckpt = root / "A"
+        env = dict(os.environ, PYTHONUNBUFFERED="1",
+                   PYTHONPATH=os.pathsep.join(
+                       [str(ROOT / "src")] + ([os.environ["PYTHONPATH"]]
+                                               if os.environ.get("PYTHONPATH")
+                                               else [])))
+        t0 = time.perf_counter()
+        rc, lines, t_preempt = run_preempted(
+            [sys.executable, "-m", "repro_torch.launch.train", *args,
+             "--ckpt-dir", str(ckpt)], env, TRAINER_TIMEOUT_S)
+        a_wall = time.perf_counter() - t0
+        k = store.latest_step(str(ckpt))
+        k_opt = store.latest_step(str(ckpt / "opt"))
+        text = "".join(lines)
+        if rc != 0 or "[preempt] saving final checkpoint" not in text or \
+                k is None or k < 2 or k_opt != k or t_preempt is None:
+            raise AssertionError(f"run A: exit {rc}, committed steps {k} / "
+                                 f"{k_opt}")
+        a_losses = step_lines(text)
+        commit = float((ckpt / "opt" / f"step_{k:08d}" / "COMMIT")
+                       .read_text())
+        save_s = commit - t_preempt
+        save_bytes = dir_bytes(ckpt / f"step_{k:08d}") + \
+            dir_bytes(ckpt / "opt" / f"step_{k:08d}")
+        print(f"trainer A: SIGTERM after step 1; exit {rc}; committed step "
+              f"{k} (params and opt) in {save_s:.2f} s wall ({save_bytes} "
+              f"bytes, {save_bytes / save_s / 1e9:.2f} GB/s); run wall "
+              f"{a_wall:.1f} s")
+        for s, loss in a_losses.items():
+            if abs(loss - u_losses[s]) > TRAINER_RESUME_TOL * abs(u_losses[s]):
+                raise AssertionError(f"run A step {s}: loss {loss} vs U's "
+                                     f"{u_losses[s]}")
+
+        # B: resumed, in-process
+        real_restore, restores = store.restore, []
+
+        def timed_restore(*a, **kw):
+            t = time.perf_counter()
+            out = real_restore(*a, **kw)
+            torch.cuda.synchronize()
+            restores.append(time.perf_counter() - t)
+            return out
+        b_rows = {}
+        store.restore = timed_restore
+        try:
+            b_losses, b_text = launcher(args + ["--ckpt-dir", str(ckpt)],
+                                        collect(b_rows))
+        finally:
+            store.restore = real_restore
+        if f"[resume] step {k}" not in b_text or \
+                sorted(b_rows) != list(range(k, TRAINER_STEPS)):
+            raise AssertionError(f"run B: resumed steps {sorted(b_rows)}")
+        diffs = {s: abs(b_rows[s]["loss"] - u_losses[s]) / abs(u_losses[s])
+                 for s in b_rows}
+        worst = max(diffs.values())
+        print(f"trainer B: [resume] step {k}; restore {sum(restores):.2f} s "
+              f"wall ({' + '.join(f'{t:.2f}' for t in restores)} s: params, "
+              f"opt; {save_bytes} bytes); losses "
+              f"{[round(b_rows[s]['loss'], 5) for s in sorted(b_rows)]} vs U "
+              f"{[round(u_losses[s], 5) for s in sorted(b_rows)]}: largest "
+              f"relative difference {worst:.2e} (tol {TRAINER_RESUME_TOL:g})")
+        if not worst <= TRAINER_RESUME_TOL:
+            raise AssertionError("the resumed run's losses leave U's")
+        shutil.rmtree(root)
+
+        # one step with --accum 2 on U's first batch.  Its gradient is the
+        # mean of the two half-batches' gradients; their load-balance loss
+        # is not the whole batch's (it is a product of two batch means), so
+        # its grad norm is held to that mean's, and only printed beside U's
+        c_rows = {}
+        launcher(args[:-2] + ["--steps", "1", "--accum", "2"],
+                 collect(c_rows))
+        mean_norm = half_batch_grad_norm(model, dev)
+        accum = {"loss": abs(c_rows[0]["loss"] - u_rows[0]["loss"])
+                 / abs(u_rows[0]["loss"]),
+                 "grad_norm": abs(c_rows[0]["grad_norm"] - mean_norm)
+                 / mean_norm,
+                 "grad_norm_vs_u": abs(c_rows[0]["grad_norm"]
+                                       - u_rows[0]["grad_norm"])
+                 / u_rows[0]["grad_norm"]}
+        print(f"trainer --accum 2: loss {c_rows[0]['loss']:.5f} vs U step 0 "
+              f"{u_rows[0]['loss']:.5f} (relative {accum['loss']:.2e}, tol "
+              f"{TRAINER_ACCUM_TOL['loss']:g}); grad_norm "
+              f"{c_rows[0]['grad_norm']:.4f} vs {mean_norm:.4f}, the norm "
+              f"of the mean of the two half-batches' gradients (make_grad_fn"
+              f"; relative {accum['grad_norm']:.2e}, tol "
+              f"{TRAINER_ACCUM_TOL['grad_norm']:g}); U step 0's grad_norm "
+              f"{u_rows[0]['grad_norm']:.4f} (relative "
+              f"{accum['grad_norm_vs_u']:.2e}, not checked: the load-balance"
+              f" loss differs between one batch and two halves)")
+        if not all(accum[key] <= tol for key, tol in
+                   TRAINER_ACCUM_TOL.items()):
+            raise AssertionError("the accumulated step leaves its reference")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    configs = config_forwards(dev)
+    wall = time.perf_counter() - t_phase
+    print(f"phase 13 (trainer and configs): {wall:.1f} s wall")
+    return {"steps": [{"step": s, **r} for s, r in sorted(u_rows.items())],
+            "step_s": step_s, "tokens_per_s": tokens_s, "peak_gib": peak,
+            "model_flops_per_step": flops, "bf16_peak_share": share,
+            "launches_steady_step": launches,
+            "preempt": {"exit": rc, "step": k, "save_s": save_s,
+                        "save_bytes": save_bytes, "run_s": a_wall},
+            "resume": {"step": k, "restore_s": restores,
+                       "max_rel_loss_diff": worst,
+                       "losses": {s: b_rows[s]["loss"] for s in b_rows}},
+            "accum2": {"loss": c_rows[0]["loss"],
+                       "grad_norm": c_rows[0]["grad_norm"], "rel": accum},
+            "configs": configs, "wall_s": wall}
+
+
+def half_batch_grad_norm(model, dev) -> float:
+    """The global norm of the mean of the gradients of token_batch(0, 0)'s
+    two halves at the launcher's seed-0 init and TrainConfig (bf16, remat,
+    chunked CE): what one `--accum 2` step must give."""
+    import torch
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.models.params import tree_map
+    from repro_torch.train import optim as OPT
+    from repro_torch.train import step as STEP
+    cfg = model.cfg
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    grad_fn = STEP.make_grad_fn(model, STEP.TrainConfig(
+        compute_dtype=torch.bfloat16, remat=True,
+        use_chunked_ce=cfg.vocab_size >= 8192))
+    batch = token_batch(0, 0, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size)
+    half = TRAIN_BATCH // 2
+    total = None
+    for i in range(2):
+        g, _ = grad_fn(params, {k: torch.as_tensor(
+            v[i * half:(i + 1) * half], device=dev) for k, v in batch.items()})
+        g = tree_map(lambda x: x.float() / 2, g)
+        total = g if total is None else tree_map(torch.add, total, g)
+        del g
+    norm = float(OPT.global_norm(total))
+    del params, total
+    torch.cuda.empty_cache()
+    return norm
+
+
+def config_forwards(dev) -> dict:
+    """Phase 13's second part: one bf16 `train_logits` of each of
+    CONFIG_ARCHS at full width, CONFIG_LAYERS layers, through the kernels
+    and through the plain path (mixtral: the plain run's routing imposed on
+    the kernel run); errors within LM_BF16_PATH_TOL x max|plain|, and the
+    launches by variant that `variant` predicts."""
+    import torch
+    from repro_torch import nn
+    from repro_torch.configs import get as get_config
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.kernels.flash_attention import flash_attention as FAK
+    from repro_torch.kernels.grouped_matmul import grouped_matmul as GMK
+    from repro_torch.models import registry
+    from repro_torch.nn import count_params
+
+    out = {}
+    for name in CONFIG_ARCHS:
+        cfg = get_config(name).replace(n_layers=CONFIG_LAYERS)
+        model = registry.build(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+        n_params = count_params(params)
+        cparams = nn.cast_floating(params.tree(), torch.bfloat16)
+        del params
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in token_batch(
+            0, 0, CONFIG_BATCH, CONFIG_SEQ, cfg.vocab_size).items()
+            if k != "labels"}
+        hd, g = cfg.resolved_head_dim, cfg.n_heads // cfg.n_kv_heads
+        fa_v = FAK.variant(torch.bfloat16, hd, g, (0, 0, 0))
+        n_moe = CONFIG_LAYERS if cfg.n_experts else 0
+        gmm_v = GMK.variant(torch.bfloat16, cfg.d_model, cfg.d_ff, 128)
+        want = {"flash_attention": CONFIG_LAYERS,
+                f"flash_attention_{fa_v}": CONFIG_LAYERS,
+                "grouped_matmul": 3 * n_moe,
+                f"grouped_matmul_{gmm_v}": 3 * n_moe}
+        want = {k: v for k, v in want.items() if v}
+        routes = []
+        with torch.no_grad():
+            with lm_kernels_through(**plain_lm()), \
+                    routes_through(recording_route(routes)):
+                plain, _ = model.train_logits(cparams, batch)
+            torch.cuda.synchronize()
+            FAK.reset_launch_counts()
+            GMK.reset_launch_counts()
+            impose = routes_through(imposed_route(routes)) if n_moe else \
+                contextlib.nullcontext()
+            t0 = time.perf_counter()
+            with impose:
+                got, _ = model.train_logits(cparams, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        counts = {k: v for k, v in {**FAK.LAUNCHES, **GMK.LAUNCHES}.items()
+                  if v}
+        ok, err, scale = False, float("inf"), float(plain.float().abs().max())
+        if got.shape == plain.shape and bool(got.isfinite().all()):
+            err = float((got.float() - plain.float()).abs().max())
+            ok = err <= LM_BF16_PATH_TOL * scale
+        rel = err / scale
+        print(f"config {name}: full width ({cfg.d_model} d_model, "
+              f"{cfg.n_heads} / {cfg.n_kv_heads} heads of {hd}, d_ff "
+              f"{cfg.d_ff}, vocab {cfg.vocab_size}"
+              + (f", {cfg.n_experts} experts top-{cfg.topk}" if n_moe else "")
+              + (f", window {cfg.sliding_window}" if cfg.sliding_window
+                 else "") + f") at {CONFIG_LAYERS} layers "
+              f"({n_params / 1e9:.3f} B parameters), bf16 train_logits of "
+              f"{CONFIG_BATCH} x {CONFIG_SEQ}: max|kernel - plain| = "
+              f"{rel:.2e} x max|plain| (tol {LM_BF16_PATH_TOL:g}); kernel "
+              f"forward {ms:.1f} ms (first call); launches {counts}")
+        if not ok or counts != want:
+            raise AssertionError(f"config {name}: error {rel:.2e}, launches "
+                                 f"{counts}, expected {want}")
+        out[name] = {"rel_err": rel, "launches": counts, "ms": ms,
+                     "params": n_params}
+        del cparams, plain, got, routes
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3225,6 +3670,9 @@ def main(argv) -> int:
     # 12. the train step
     print(smi_line())
     train = train_phase(dev, mem_rate, bf16_rate, "--profile" in argv)
+    # 13. the trainer entry point, and the four attention-only LM configs
+    print(smi_line())
+    train["trainer"] = trainer_phase(dev, bf16_rate)
 
     if "--profile" in argv:
         from torch.profiler import ProfilerActivity, profile
@@ -3255,7 +3703,7 @@ def main(argv) -> int:
                   f"(busy {span_ms(evs) / wall:.3f}), spconv_fod_tc_kernel "
                   f"{span_ms(conv):.3f} ms over {len(conv)} launches")
 
-    # 8. result lines
+    # 14. result lines
     src = "src/repro_torch/kernels/spconv/csrc/spconv_tc.cu"
     plans = {f"level {lv}": sorted(d["plans"]) for lv, d in
              sorted(by_level.items())}
@@ -3319,9 +3767,18 @@ def main(argv) -> int:
          "per": "one PointNet++(s) forward (16 x 4096): sum over its 6 "
                 "groups"},
     ] + lm_kernels + [train["entry"]]
+    steady = train["trainer"]["launches_steady_step"]
+    for entry in kernels:
+        if entry["name"] in ("flash_attention", "grouped_matmul",
+                             "grouped_matmul_dw"):
+            entry["trainer_launches"] = {
+                k: v for k, v in steady.items()
+                if k.removeprefix(entry["name"]).strip("_") in
+                ("", "wgmma", "fma", "dx")}
     print(json.dumps({"v1": {k: v1[k] for k in ("times", "served",
                                                   "d2_points", "d2_err")},
-                      "train": {k: train[k] for k in ("steps", "parity")}}))
+                      "train": {k: train[k] for k in ("steps", "parity",
+                                                      "trainer")}}))
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

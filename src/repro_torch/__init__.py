@@ -23,9 +23,16 @@ found under the same path:
     repro_torch.serve.faults / overload      typed errors, FaultPlan,
                                              overload control
     repro_torch.obs                          metrics, traces, recorder
-    repro_torch.launch.fault_tolerance       Ticker, Pulse, Heartbeat
+    repro_torch.launch.fault_tolerance       PreemptionHandler, Ticker,
+                                             Pulse, Heartbeat, StepTimer
+    repro_torch.launch.train                 the training launcher (main)
+    repro_torch.launch.flops / shapes        the analytic FLOP model
+    repro_torch.checkpoint.store             checkpoints in the reference's
+                                             format
     repro_torch.configs                      ArchConfig, granite-moe-1b,
-                                             minkunet, mini-minkunet
+                                             qwen1.5-4b / 32b, granite-34b,
+                                             mixtral-8x7b, minkunet,
+                                             mini-minkunet
     repro_torch.models.layers / moe / lm     LM layers, sorted MoE, LM
     repro_torch.models.registry              build(cfg) -> Model
     repro_torch.kernels.flash_attention      hand-written Hopper kernels:
@@ -33,7 +40,8 @@ found under the same path:
     repro_torch.kernels.grouped_matmul         attention, expert matmul
     repro_torch.serve.lm                     ServeEngine.generate
     repro_torch.train                        losses, AdamW, train step
-    repro_torch.data.synthetic               scenes, clouds, token batches
+    repro_torch.data.synthetic / pipeline    scenes, clouds, token batches;
+                                             the prefetching iterator
 
 Entry points run on the card.  The CPU is opt-in (`device="cpu"`), where
 every kernel wrapper takes its plain PyTorch version.  The package imports

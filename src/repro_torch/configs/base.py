@@ -10,7 +10,10 @@ from typing import Optional, Tuple
 
 _REGISTRY: dict = {}
 
-_ARCH_MODULES = ["granite_moe_1b", "minkunet", "mini_minkunet"]  # ported
+_ARCH_MODULES = [  # ported
+    "granite_34b", "qwen15_4b", "qwen15_32b", "granite_moe_1b", "mixtral_8x7b",
+    "minkunet", "mini_minkunet",
+]
 
 
 @dataclass(frozen=True)

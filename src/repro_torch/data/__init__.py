@@ -1,1 +1,2 @@
-"""Synthetic input scenes."""
+"""Synthetic inputs (`synthetic`) and the host-side prefetching pipeline
+(`pipeline`)."""

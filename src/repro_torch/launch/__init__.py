@@ -1,1 +1,3 @@
-"""Runtime pieces shared by the port's serving stack."""
+"""Runtime pieces of the port: the training launcher (`train`), its FLOP
+model (`flops`, `shapes`) and the fault-tolerance primitives it shares
+with the serving stack (`fault_tolerance`)."""

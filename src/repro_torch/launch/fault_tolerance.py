@@ -1,22 +1,58 @@
-"""Liveness primitives of the serving runtime (the reference's
-`launch/fault_tolerance.py`, its serving part).
+"""Fault-tolerance runtime pieces of the training launcher and the
+serving stack (the port of the reference's `launch/fault_tolerance.py`).
 
+  * PreemptionHandler — SIGTERM/SIGINT -> finish the in-flight step, force a
+    checkpoint, exit cleanly (what a cluster's maintenance event sends).
   * Ticker — joinable daemon ticker (the primitive under Heartbeat and the
     serve scheduler's background watchdog): on_tick() every interval_s,
     close() joins so threads never leak past their owner.
   * Pulse — lock-free liveness record: the worked thread beat()s, a
     watcher reads age()/stalled(stall_s).
   * Heartbeat — a stall watchdog over a Pulse.
-
-The training launcher's `PreemptionHandler` and `StepTimer` come with the
-port's launcher (ROADMAP.md Queue A item 6).
+  * StepTimer — rolling step-time stats; flags straggler steps
+    (> k x median once 5 samples exist).  It times what lies between
+    start() and stop(): on the card the caller reads the step's result (or
+    synchronises) before stop(), so `step_s` is the step's device time,
+    not the time to enqueue it.
 """
 
 from __future__ import annotations
 
+import collections
+import signal
+import statistics
 import threading
 import time
 from typing import Callable, Optional
+
+
+def _now() -> float:
+    """The clock StepTimer reads (seconds, monotonic)."""
+    return time.perf_counter()
+
+
+class PreemptionHandler:
+    """Install with `with PreemptionHandler() as p:` and poll
+    `p.should_stop` once per step; the previous handlers come back on
+    exit."""
+
+    def __init__(self, signals=(signal.SIGTERM, signal.SIGINT)):
+        self._signals = signals
+        self._orig = {}
+        self.should_stop = False
+
+    def _handle(self, signum, frame):
+        self.should_stop = True
+
+    def __enter__(self):
+        for s in self._signals:
+            self._orig[s] = signal.signal(s, self._handle)
+        return self
+
+    def __exit__(self, *exc):
+        for s, h in self._orig.items():
+            signal.signal(s, h)
+        return False
 
 
 class Ticker:
@@ -109,3 +145,24 @@ class Heartbeat:
 
     def close(self):
         self._ticker.close()
+
+
+class StepTimer:
+    """Rolling step-time tracker with straggler flagging: a step is a
+    straggler when at least 5 earlier steps are in the window and it took
+    more than `straggler_factor` x their median."""
+
+    def __init__(self, window: int = 50, straggler_factor: float = 2.0):
+        self.times = collections.deque(maxlen=window)
+        self.factor = straggler_factor
+        self._t0 = None
+
+    def start(self):
+        self._t0 = _now()
+
+    def stop(self) -> dict:
+        dt = _now() - self._t0
+        med = statistics.median(self.times) if self.times else dt
+        straggler = len(self.times) >= 5 and dt > self.factor * med
+        self.times.append(dt)
+        return {"step_s": dt, "median_s": med, "straggler": straggler}

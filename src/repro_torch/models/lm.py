@@ -11,9 +11,11 @@ Modes: "train" (no state; `remat=True` checkpoints each body with
 `torch.utils.checkpoint`, as the reference `jax.checkpoint`s it, so only
 the bodies' boundary activations survive the forward), "prefill" (produce
 per-body states, stacked), "decode" (consume states and update them in
-place: the counterpart of the reference's donated buffers).  Only what granite-moe-1b-a400m needs is
-ported: attention bodies with dense or MoE FFNs, RMSNorm, RoPE, an untied
-head.  `check_ported` raises NotImplementedError for the reference's other
+place: the counterpart of the reference's donated buffers).  Only
+attention bodies are ported, with dense (gated or plain) or MoE FFNs, QKV
+bias, sliding windows, RMSNorm, RoPE and an untied head: what
+granite-moe-1b-a400m, qwen1.5-4b / 32b, granite-34b and mixtral-8x7b
+need.  `check_ported` raises NotImplementedError for the reference's other
 features (mamba/xLSTM layouts, M-RoPE, sandwich and local/global norms,
 embedding scale, tied embeddings, final softcap, layernorm).
 

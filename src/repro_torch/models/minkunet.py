@@ -46,15 +46,15 @@ def conv_w_init(gen: torch.Generator, k: int, c_in: int,
     return N.uniform_init(gen, (k, c_in, c_out), 1.0 / math.sqrt(k * c_in))
 
 
-def _layernorm_init(d: int):
-    return {"scale": torch.ones(d), "bias": torch.zeros(d)}
+def _layernorm_init(gen: torch.Generator, d: int):
+    return N.layernorm_init(d, gen.device)
 
 
 def _block_init(gen: torch.Generator, c_in: int, c_out: int):
     p = {"conv1": conv_w_init(gen, 27, c_in, c_out),
-         "n1": _layernorm_init(c_out),
+         "n1": _layernorm_init(gen, c_out),
          "conv2": conv_w_init(gen, 27, c_out, c_out),
-         "n2": _layernorm_init(c_out)}
+         "n2": _layernorm_init(gen, c_out)}
     if c_in != c_out:
         p["proj"] = N.dense_init(gen, c_in, c_out, use_bias=False)
     return p
@@ -67,15 +67,15 @@ def minkunet_init(generator: torch.Generator, c_in: int = 4,
                   blocks_per_stage: int = 2) -> MinkUNet:
     """Random MinkUNet weights with the reference's shapes and
     distributions (uniform +-1/sqrt(fan_in), layernorm ones/zeros, zero
-    head bias), drawn from `generator`."""
+    head bias), drawn from `generator`, every leaf on its device."""
     g = generator
     params = {"stem": conv_w_init(g, 27, c_in, stem),
-              "stem_n": _layernorm_init(stem)}
+              "stem_n": _layernorm_init(g, stem)}
     c = stem
     enc = []
     for planes in enc_planes:
         stage = {"down": conv_w_init(g, 8, c, planes),
-                 "down_n": _layernorm_init(planes), "blocks": []}
+                 "down_n": _layernorm_init(g, planes), "blocks": []}
         c = planes
         for _ in range(blocks_per_stage):
             stage["blocks"].append(_block_init(g, c, planes))
@@ -85,7 +85,7 @@ def minkunet_init(generator: torch.Generator, c_in: int = 4,
     skip_cs = [stem] + list(enc_planes[:-1])
     for i, planes in enumerate(dec_planes):
         stage = {"up": conv_w_init(g, 8, c, planes),
-                 "up_n": _layernorm_init(planes), "blocks": []}
+                 "up_n": _layernorm_init(g, planes), "blocks": []}
         cb = planes + skip_cs[-(i + 1)]
         for _ in range(blocks_per_stage):
             stage["blocks"].append(_block_init(g, cb, planes))

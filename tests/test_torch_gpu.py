@@ -9,6 +9,8 @@ Tolerance: atol = rtol = 1e-4 — float32 sums taken in another order;
 2e-2 in bfloat16 (one bf16 rounding of the output).
 """
 
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -1015,3 +1017,116 @@ def test_v1_segment_of_a_small_scene_on_the_card():
     near = (top2[:, 0] - top2[:, 1]) < 1e-4
     diff = (preds["cuda"].cpu() != preds["cpu"]) & torch.from_numpy(mask)
     assert not bool((diff & ~near).any())
+
+
+# ---------------------------------------------------------------------------
+# the training launcher on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_checkpoint_round_trips_bf16_on_the_card(tmp_path):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.checkpoint import store
+    g = torch.Generator(device="cuda").manual_seed(0)
+    tree = {"w": torch.randn(33, 17, generator=g, device="cuda").to(
+        torch.bfloat16), "n": [torch.tensor(5, dtype=torch.int32,
+                                            device="cuda")]}
+    store.save(str(tmp_path), 1, tree)
+    assert store.read_manifest(str(tmp_path), 1)["leaves"]["w"] == {
+        "shape": [33, 17], "dtype": "bfloat16"}
+    like = {"w": torch.zeros_like(tree["w"]),
+            "n": [torch.zeros_like(tree["n"][0])]}
+    got = store.restore(str(tmp_path), 1, like)
+    assert got["w"].device.type == "cuda" and got["w"].dtype == \
+        torch.bfloat16
+    assert torch.equal(got["w"].view(torch.int16),
+                       tree["w"].view(torch.int16))
+    assert int(got["n"][0]) == 5
+
+
+@pytest.mark.gpu
+def test_prefetch_iterator_puts_batches_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.data.pipeline import PrefetchIterator
+    from repro_torch.data.synthetic import token_batch
+
+    def batch_fn(step):
+        return token_batch(0, step, 2, 16, 256)
+    it = PrefetchIterator(batch_fn, start_step=3, device="cuda")
+    got = [next(it) for _ in range(2)]
+    it.close()
+    assert not it._t.is_alive()
+    for step, batch in got:
+        for k, v in batch_fn(step).items():
+            assert batch[k].device.type == "cuda"
+            np.testing.assert_array_equal(batch[k].cpu().numpy(), v)
+    assert [s for s, _ in got] == [3, 4]
+
+
+@pytest.mark.gpu
+def test_launcher_resumes_bit_equal_on_the_card(tmp_path, capsys):
+    """Two steps of reduced granite-moe-1b-a400m on the card, saving after
+    each; a run resumed from step 1's checkpoint computes step 1's loss
+    bit-equal (the loss is a forward of the restored weights)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.launch import train as TRAIN
+    args = ["--arch", "granite-moe-1b-a400m", "--reduced", "--batch", "4",
+            "--seq", "32", "--lr", "1e-3", "--log-every", "1",
+            "--lr-total-steps", "4", "--ckpt-every", "1"]
+    runs = {"full": {}, "resumed": {}}
+
+    def rec(name):
+        return lambda step, met, stats: runs[name].update({step: met})
+    TRAIN.main(args + ["--steps", "2", "--ckpt-dir", str(tmp_path / "a")],
+               on_step=rec("full"))
+    for sub in ("", "/opt"):
+        src = tmp_path / f"a{sub}" / "step_00000001"
+        dst = tmp_path / f"b{sub}" / "step_00000001"
+        shutil.copytree(src, dst)
+    TRAIN.main(args + ["--steps", "2", "--ckpt-dir", str(tmp_path / "b")],
+               on_step=rec("resumed"))
+    assert "[resume] step 1" in capsys.readouterr().out
+    assert sorted(runs["resumed"]) == [1]
+    assert runs["resumed"][1]["loss"] == runs["full"][1]["loss"]
+    assert np.isfinite(runs["full"][0]["loss"])
+
+
+@pytest.mark.gpu
+def test_flash_attention_with_48_query_heads_a_kv_head_bf16():
+    """granite-34b's MQA (48 query heads on one kv head, head_dim 128) at
+    bf16: G is no power of two, so the FMA kernel takes it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.flash_attention import flash_attention as FAK
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    g = torch.Generator(device="cuda").manual_seed(1)
+    q = torch.randn(2, 48, 70, 128, generator=g, device="cuda").bfloat16()
+    k, v = (torch.randn(2, 1, 70, 128, generator=g, device="cuda")
+            .bfloat16() for _ in range(2))
+    before = FAK.LAUNCHES["flash_attention_fma"]
+    got = FAK.flash_attention_cuda(q, k, v)
+    torch.cuda.synchronize()
+    assert FAK.LAUNCHES["flash_attention_fma"] == before + 1
+    want = attention_ref(q, k, v)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= 2e-2 * float(want.float().abs().max())
+
+
+@pytest.mark.gpu
+def test_minkunet_init_from_a_card_generator_is_on_the_card():
+    """Every leaf follows the generator's device: the layernorm leaves were
+    made on the CPU beside card-drawn convolutions before."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.models import minkunet as MU
+    module = MU.mini_minkunet_init(torch.Generator(device="cuda")
+                                   .manual_seed(0))
+    devices = {p.device.type for p in module.parameters()}
+    assert devices == {"cuda"}
+    cpu = MU.mini_minkunet_init(torch.Generator().manual_seed(0))
+    for (name, a), (_, b) in zip(module.state_dict().items(),
+                                 cpu.state_dict().items()):
+        assert a.shape == b.shape, name
