@@ -15,7 +15,11 @@ Phases (any failure exits non-zero; none catches its own):
      `flash_attention_wgmma_kernel` instance the prefill takes (head_dim
      64), and a 128-bit global load (LDG.E.128 or LDGSTS.128) in the
      `flash_decode_kernel` instance that the decode step's shapes take;
-     those two instances' registers and spills (ptxas -v) are printed; and
+     those two instances' registers and spills (ptxas -v) are printed;
+     HGMMA, registers and spills of the `flash_attention_wgmma_kernel`
+     instances that phase 14's jamba (head_dim 128) and gemma2 (head_dim
+     256) prefills take, and registers and spills of the
+     `flash_decode_kernel` instances of their decode steps; and
      `HMMA ... TF32` in every `spconv_fod_tc_kernel` instance (column tile,
      fused or not) that the MinkUNet path takes, with its registers and
      spills, and in every `fused_mlp_tc_kernel` instance that a
@@ -268,10 +272,71 @@ Phases (any failure exits non-zero; none catches its own):
      against the plain path (mixtral: the plain run's routing imposed)
      within 5e-2 x max|plain|, launches by the variant `variant` names
      (granite-34b's 48 query heads a kv head take the FMA attention).
-  14. a {"v1": ..., "train": {..., "trainer": ...}} line, a {"kernels":
-     [...]} line (seven kernels; flash_attention, grouped_matmul and
-     grouped_matmul_dw carry phase 13's counts as `trainer_launches`), the
-     nvidia-smi line, and last the {"ok": true, "device": {...}} line.
+  14. recurrent, hybrid and gemma2 LMs, after the earlier phases' objects
+     are freed and the allocator's cache emptied; random weights from
+     torch.Generator("cuda").manual_seed(0), drawn in bf16 through
+     `lm_init` (each leaf cast as it is drawn); the peak memory of each
+     init and each run printed.
+     14a. jamba-v0.1-52b at full width, one body (8 of its 32 layers: 7
+     mamba, 1 attention, MoE with 16 experts top-2 on the 4 odd
+     sub-layers; about 13.3 B parameters).  `ServeEngine(ServeConfig(
+     max_len=1024))` generates 16 tokens from 2 x 512 prompts (4
+     128-token scan chunks carry the mamba state), RECURRENT_RUNS times
+     (the first a warm-up): prefill and decode-step ms (medians) beside the
+     decode step's weight-read yardstick (all bf16 weights over the memory
+     rate: the decode MoE is "dense"); launches a generate: flash_attention
+     1 (wgmma, head_dim 128, G 4), grouped_matmul 12 (wgmma), flash_decode
+     1 a decode step.  The plain path teacher-forced on the generated
+     tokens (its MoE routing recorded) against the kernel path with that
+     routing imposed: every logit within LM_BF16_PATH_TOL x max|plain|.
+     Then one bf16 forward and backward of `train_logits` on 1 x 512 (no
+     optimiser) through the plain path and through the kernels (the plain
+     routing imposed): the loss and the gradient norm of each leaf, and of
+     each expert of an expert leaf, within GRAD_NORM_TOL relative;
+     grouped_matmul_dx and grouped_matmul_dw launch 12 times each, all
+     wgmma.  The backward's first two dX and dW calls, kept from the
+     kernel run, are held alone against their plain versions
+     (LM_BF16_TOL), and a dW that writes expert 0's gradient as zeros must
+     fail the norms check.
+     14b. xlstm-125m: a mamba sub-layer at jamba's full width and an mLSTM
+     and an sLSTM block at xlstm's, float32 on 1 x 256 (prefill mode), on
+     the card against the same call on the CPU: output and every state
+     leaf within 1e-4 x max|CPU| (no kernel on this path: this shows a
+     fault only the card makes).  Then xlstm-125m at full width and depth
+     (12 layers) generates 32 tokens from 4 x 512 prompts (prefill and
+     decode-step ms printed; the sLSTM is a Python loop of S steps, host
+     bound), and `launch.train.main(--arch xlstm-125m --compute-dtype
+     bfloat16 --batch 4 --seq 512 --steps 3)` runs: losses finite, step
+     ms, training tokens/s and peak memory printed.
+     14c. gemma2-2b at full width and depth (26 layers, head_dim 256, vocab
+     256000, tied head, softcaps 50 / 30, 13 local layers with a 4096
+     window), its trainer first (below), on an empty allocator: generate
+     32 tokens from 4 x 512 prompts, checked against the
+     plain path as in 14a (no MoE); launches: flash_attention 26 a prefill
+     (all wgmma, head_dim 256, G 2, softcap 50; 13 of the recorded calls
+     windowed at 4096), flash_decode 26 a decode step.  One prefill of 1 x
+     4608 tokens (the window binds) through the kernels against the plain
+     path: all logits within the same tolerance.  `launch.train.main(--arch
+     gemma2-2b --compute-dtype bfloat16 --batch 2 --seq 512 --steps 3)`
+     (the tied head and the final softcap through the chunked CE): losses
+     finite, step ms and peak printed.
+     Kernel calls recorded in the plain runs are held alone against their
+     plain versions (LM_BF16_TOL) and timed a call beside them and the
+     library call at the same shapes, with the bound, as in phase 8:
+     jamba's flash_attention, flash_decode and two prefill grouped_matmul
+     calls (w_in and w_out of its first MoE sub-layer; torch.bmm beside
+     them), gemma2's global-layer flash_attention at 4 x 512, its
+     flash_decode, and its local layer 0's flash_attention in the 1 x
+     4608 prefill, where the window binds (SDPA has no softcap and no
+     window).  The phase's wall is printed.
+  15. a {"v1": ..., "train": {..., "trainer": ...}, "recurrent": ...} line,
+     a {"kernels": [...]} line (seven kernels; flash_attention,
+     grouped_matmul and grouped_matmul_dw carry phase 13's counts as
+     `trainer_launches`, and the four LM kernels phase 14's counts by path
+     as `recurrent_launches`; flash_attention, flash_decode and
+     grouped_matmul carry phase 14's timed instances as `instances`), the
+     nvidia-smi line, and last
+     the {"ok": true, "device": {...}} line.
 
 `--profile` adds torch.profiler tables of one segment hit and one miss
 (each with its wall, device time, busy share and spconv kernel time), of one
@@ -286,6 +351,7 @@ IndexBackward0, _DispatchGatherBackward and EmbeddingBackward nodes).
 from __future__ import annotations
 
 import contextlib
+import gc
 import itertools
 import json
 import statistics
@@ -359,6 +425,20 @@ TRAINER_ACCUM_TOL = {"loss": 1e-2, "grad_norm": 5e-2}  # --accum 2 (relative)
 TRAINER_TIMEOUT_S = 420      # the preempted subprocess's deadline
 CONFIG_ARCHS = ("qwen1.5-4b", "qwen1.5-32b", "granite-34b", "mixtral-8x7b")
 CONFIG_LAYERS, CONFIG_BATCH, CONFIG_SEQ = 2, 2, 512   # their forwards
+RECURRENT_ARCHS = ("jamba-v0.1-52b", "xlstm-125m", "gemma2-2b")  # phase 14
+RECURRENT_RUNS = 3           # generate calls of each path, the first a warm-up
+JAMBA_LAYERS = 8             # 14a: one body of jamba's 32 layers
+JAMBA_BATCH, JAMBA_PROMPT, JAMBA_NEW, JAMBA_MAX_LEN = 2, 512, 16, 1024
+JAMBA_TRAIN = (1, 512)       # one forward and backward of train_logits
+GRAD_NORM_TOL = 1e-2         # per-leaf (per-expert) gradient norms, relative
+EXPERT_LEAVES = ("w_in", "w_gate", "w_out")  # MoE leaves with an expert axis
+BLOCK_SHAPE = (1, 256)       # 14b: each recurrent block, f32, card vs CPU
+BLOCK_TOL = 1e-4             # max|card - cpu| <= tol * max|cpu|
+XLSTM_BATCH, XLSTM_PROMPT, XLSTM_NEW = 4, 512, 32
+GEMMA_BATCH, GEMMA_PROMPT, GEMMA_NEW = 4, 512, 32
+GEMMA_LONG = 4608            # 14c: a prefill past gemma2's 4096 window
+RECURRENT_TRAIN = {"xlstm-125m": (4, 512), "gemma2-2b": (2, 512)}
+RECURRENT_TRAIN_STEPS = 3
 
 
 def smi_line() -> str:
@@ -1861,19 +1941,87 @@ def windowed_decode_check(dev, cfg):
         raise AssertionError("windowed decode differs from the CPU call")
 
 
-def lm_phases(dev, mem_rate: float, bf16_rate: float, with_profile: bool):
-    """Phases 8-10 (see the module docstring).  Returns the kernels-line
-    entries of the three LM kernels."""
-    import numpy as np
+def lm_calls(kind, args, dtype=None):
+    """(kernel, plain, library) zero-argument calls on a recorded LM kernel
+    call's operands `args`, cast to dtype when given; flash_attention and
+    grouped_matmul add their earlier float32-FMA kernel."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.configs import get as get_config
     from repro_torch.kernels.flash_attention import flash_attention as FAK
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.flash_decode import flash_decode as FDK
     from repro_torch.kernels.flash_decode.ref import flash_decode_ref
     from repro_torch.kernels.grouped_matmul import grouped_matmul as GMK
     from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref
+    cast = (lambda t: t.to(dtype)) if dtype is not None else (lambda t: t)
+    if kind == "flash_attention":
+        q, k, v, kw = args
+        q, k, v = cast(q), cast(k), cast(v)
+        return (lambda: FAK.flash_attention_cuda(q, k, v, **kw),
+                lambda: attention_ref(q, k, v, **kw),
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, scale=kw["scale"],
+                    enable_gqa=True),
+                lambda: FAK.flash_attention_fma(q, k, v, **kw))
+    if kind == "grouped_matmul":
+        x, eid, w, rt = args
+        x, w = cast(x), cast(w)
+        e = w.shape[0]
+        xe = x.view(e, x.shape[0] // e, x.shape[1])
+        return (lambda: GMK.grouped_matmul_cuda(x, eid, w, rt),
+                lambda: grouped_matmul_ref(x, eid, w, rt),
+                lambda: torch.bmm(xe, w),
+                lambda: GMK.grouped_matmul_fma(x, eid, w, rt))
+    q, k, v, lengths, kw = args
+    q, k, v = cast(q), cast(k), cast(v)
+    n = int(lengths.max())
+    if int(lengths.min()) != n:
+        raise AssertionError("the library yardstick takes one length")
+    q4 = q[:, :, None, :]
+    kl, vl = k[:, :n].transpose(1, 2), v[:, :n].transpose(1, 2)
+    return (lambda: FDK.flash_decode_cuda(q, k, v, lengths, **kw),
+            lambda: flash_decode_ref(q, k, v, lengths, **kw),
+            lambda: F.scaled_dot_product_attention(
+                q4, kl, vl, scale=kw["scale"], enable_gqa=True))
+
+
+def lm_work(kind, args):
+    """(bytes, FLOPs) the call needs: each input read once, each output
+    written once; attention pairs the masks leave."""
+    if kind == "flash_attention":
+        q, k, v, kw = args
+        bsz, hq, sq, d = q.shape
+        skv = k.shape[2]
+        win = kw.get("window") or skv
+        pairs = sum(min(i + 1, skv, win) for i in range(sq)) \
+            if kw["causal"] else sq * skv
+        nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+        return nbytes, 4.0 * bsz * hq * pairs * d
+    if kind == "grouped_matmul":
+        x, eid, w, rt = args
+        nbytes = x.element_size() * (x.numel() + w.numel()
+                                     + x.shape[0] * w.shape[2]) \
+            + eid.numel() * 4
+        return nbytes, 2.0 * x.shape[0] * w.shape[1] * w.shape[2]
+    q, k, v, lengths, kw = args
+    bsz, hq, hd = q.shape
+    n = int(lengths.sum())
+    nbytes = q.element_size() * 2 * q.numel() + lengths.numel() * 4 \
+        + k.element_size() * 2 * n * k.shape[2] * hd
+    return nbytes, 4.0 * n * hq * hd
+
+
+def lm_phases(dev, mem_rate: float, bf16_rate: float, with_profile: bool):
+    """Phases 8-10 (see the module docstring).  Returns the kernels-line
+    entries of the three LM kernels."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get as get_config
+    from repro_torch.kernels.flash_attention import flash_attention as FAK
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.flash_decode import flash_decode as FDK
+    from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+    from repro_torch.kernels.grouped_matmul import grouped_matmul as GMK
     from repro_torch.models import registry
     from repro_torch.serve.lm import ServeConfig, ServeEngine
 
@@ -1927,41 +2075,6 @@ def lm_phases(dev, mem_rate: float, bf16_rate: float, with_profile: bool):
                 for i in (0, last)])
     del rec
 
-    def calls(kind, args, dtype=None):
-        """(kernel, plain, library) zero-argument calls on args, cast to
-        dtype when given; flash_attention and grouped_matmul add their
-        earlier float32-FMA kernel."""
-        cast = (lambda t: t.to(dtype)) if dtype is not None else (lambda t: t)
-        if kind == "flash_attention":
-            q, k, v, kw = args
-            q, k, v = cast(q), cast(k), cast(v)
-            return (lambda: FAK.flash_attention_cuda(q, k, v, **kw),
-                    lambda: attention_ref(q, k, v, **kw),
-                    lambda: F.scaled_dot_product_attention(
-                        q, k, v, is_causal=True, scale=kw["scale"],
-                        enable_gqa=True),
-                    lambda: FAK.flash_attention_fma(q, k, v, **kw))
-        if kind == "grouped_matmul":
-            x, eid, w, rt = args
-            x, w = cast(x), cast(w)
-            e = w.shape[0]
-            xe = x.view(e, x.shape[0] // e, x.shape[1])
-            return (lambda: GMK.grouped_matmul_cuda(x, eid, w, rt),
-                    lambda: grouped_matmul_ref(x, eid, w, rt),
-                    lambda: torch.bmm(xe, w),
-                    lambda: GMK.grouped_matmul_fma(x, eid, w, rt))
-        q, k, v, lengths, kw = args
-        q, k, v = cast(q), cast(k), cast(v)
-        n = int(lengths.max())
-        if int(lengths.min()) != n:
-            raise AssertionError("the library yardstick takes one length")
-        q4 = q[:, :, None, :]
-        kl, vl = k[:, :n].transpose(1, 2), v[:, :n].transpose(1, 2)
-        return (lambda: FDK.flash_decode_cuda(q, k, v, lengths, **kw),
-                lambda: flash_decode_ref(q, k, v, lengths, **kw),
-                lambda: F.scaled_dot_product_attention(
-                    q4, kl, vl, scale=kw["scale"], enable_gqa=True))
-
     def kernel_check(got, want, tol):
         """(passes, max abs error, max|plain|): the per-kernel rule."""
         scale = float(want.float().abs().max())
@@ -1992,30 +2105,6 @@ def lm_phases(dev, mem_rate: float, bf16_rate: float, with_profile: bool):
                             f"K/V without their last {FA_CONTROL_KEYS} "
                             f"keys")}
 
-    def work(kind, args):
-        """(bytes, FLOPs) the call needs: each input read once, each output
-        written once; attention pairs the masks leave."""
-        if kind == "flash_attention":
-            q, k, v, kw = args
-            bsz, hq, sq, d = q.shape
-            skv = k.shape[2]
-            pairs = sum(min(i + 1, skv) for i in range(sq)) if kw["causal"] \
-                else sq * skv
-            nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
-            return nbytes, 4.0 * bsz * hq * pairs * d
-        if kind == "grouped_matmul":
-            x, eid, w, rt = args
-            nbytes = x.element_size() * (x.numel() + w.numel()
-                                         + x.shape[0] * w.shape[2]) \
-                + eid.numel() * 4
-            return nbytes, 2.0 * x.shape[0] * w.shape[1] * w.shape[2]
-        q, k, v, lengths, kw = args
-        bsz, hq, hd = q.shape
-        n = int(lengths.sum())
-        nbytes = q.element_size() * 2 * q.numel() + lengths.numel() * 4 \
-            + k.element_size() * 2 * n * k.shape[2] * hd
-        return nbytes, 4.0 * n * hq * hd
-
     print(f"LM kernel phase: operands recorded from one plain bf16 prefill "
           f"({b} x {s}) and {LM_PLAIN_STEPS} plain decode steps; rule "
           f"max|kernel - plain| <= {LM_KERNEL_F32_TOL:g} * max|plain| at f32, "
@@ -2037,7 +2126,7 @@ def lm_phases(dev, mem_rate: float, bf16_rate: float, with_profile: bool):
     for kind, site, args in sites:
         rels = {}
         for label, dtype in (("f32", torch.float32), ("bf16", None)):
-            fns = calls(kind, args, dtype)
+            fns = lm_calls(kind, args, dtype)
             before = {**GMK.LAUNCHES, **FAK.LAUNCHES}
             got, want = fns[0](), fns[1]()
             torch.cuda.synchronize()
@@ -2075,9 +2164,9 @@ def lm_phases(dev, mem_rate: float, bf16_rate: float, with_profile: bool):
             if ok_c:
                 raise AssertionError(f"the bf16 kernel check accepts the "
                                      f"{what}")
-        nbytes, flops = work(kind, args)
+        nbytes, flops = lm_work(kind, args)
         copies = cold_copies(args, nbytes, l2_bytes)
-        fns = [calls(kind, a) for a in copies]
+        fns = [lm_calls(kind, a) for a in copies]
         t = [graph_ms(rotating([f[i] for f in fns]), MLP_REPS)
              for i in range(len(fns[0]))]
         warm = graph_ms(fns[0][0], MLP_REPS)
@@ -2113,7 +2202,7 @@ def lm_phases(dev, mem_rate: float, bf16_rate: float, with_profile: bool):
     # 0: launch, the lengths read, barriers and merges), at layer 0's
     # operands, cold as above
     q, k, v, lengths, kw = fd_args
-    copies = cold_copies((q, k, v, lengths), work("flash_decode", fd_args)[0],
+    copies = cold_copies((q, k, v, lengths), lm_work("flash_decode", fd_args)[0],
                          l2_bytes)
     split_ms = {n: graph_ms(rotating([
         lambda a=a, n=n: FDK.flash_decode_cuda(*a, **kw, n_split=n)
@@ -2193,30 +2282,11 @@ def lm_phases(dev, mem_rate: float, bf16_rate: float, with_profile: bool):
     del q, k, v
 
     # 9. main path: generate through ServeEngine, timed
-    step_ms = {"prefill": [], "decode": []}
-
-    def timed(fn, key):
-        def run(*a):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*a)
-            torch.cuda.synchronize()
-            step_ms[key].append((time.perf_counter() - t0) * 1e3)
-            return out
-        return run
-    steps = (engine.prefill_step, engine.decode_step)
-    engine.prefill_step = timed(steps[0], "prefill")
-    engine.decode_step = timed(steps[1], "decode")
     for mod in (FAK, GMK, FDK):
         mod.reset_launch_counts()
-    runs = []
-    for _ in range(4):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        toks = engine.generate(prompts, max_new_tokens=LM_NEW)
-        runs.append(((time.perf_counter() - t0) * 1e3, toks))
+    gen, pre_ms, dec_ms, runs_ms = timed_generate(engine, prompts, LM_NEW, 4)
     launches = {**FAK.LAUNCHES, **GMK.LAUNCHES, **FDK.LAUNCHES}
-    n_dec = len(step_ms["decode"])
+    n_dec = 4 * LM_NEW
     want_launch = {"flash_attention": 4 * cfg.n_layers,
                    "flash_attention_wgmma": 4 * cfg.n_layers,
                    "flash_attention_fma": 0,
@@ -2228,19 +2298,14 @@ def lm_phases(dev, mem_rate: float, bf16_rate: float, with_profile: bool):
                    "flash_decode": n_dec * cfg.n_layers}
     print(f"LM main-path launches over 4 generate calls (4 prefills, {n_dec} "
           f"decode steps): {launches}")
-    if launches != want_launch or n_dec != 4 * LM_NEW:
+    if launches != want_launch:
         raise AssertionError(f"LM launches {launches}, expected {want_launch}")
-    gen = runs[0][1]
-    if any(not np.array_equal(t, gen) for _, t in runs[1:]):
-        raise AssertionError("generate gave different tokens across runs")
     if gen.shape != (b, LM_NEW) or gen.min() < 0 or gen.max() >= cfg.vocab_size:
         raise AssertionError(f"bad generated tokens {gen.shape}")
-    pre_ms = step_ms["prefill"][1:]
-    dec_ms = step_ms["decode"][LM_NEW:]
-    gen_ms = [ms for ms, _ in runs[1:]]
+    gen_ms = runs_ms[1:]
     med_gen = statistics.median(gen_ms)
     print(f"LM generate {b} x {s} prompt + {LM_NEW} new tokens: warm-up "
-          f"{runs[0][0]:.1f} ms, timed {[round(v, 1) for v in gen_ms]} ms; "
+          f"{runs_ms[0]:.1f} ms, timed {[round(v, 1) for v in gen_ms]} ms; "
           f"prefill {[round(v, 2) for v in pre_ms]} ms (median "
           f"{statistics.median(pre_ms):.2f}); decode step median "
           f"{statistics.median(dec_ms):.3f} ms (min {min(dec_ms):.3f}, max "
@@ -2248,7 +2313,6 @@ def lm_phases(dev, mem_rate: float, bf16_rate: float, with_profile: bool):
           f"tokens/s end to end, {b / statistics.median(dec_ms) * 1e3:.1f} "
           f"tokens/s a decode step, {b * s / statistics.median(pre_ms) * 1e3:.0f}"
           f" prompt tokens/s in prefill")
-    engine.prefill_step, engine.decode_step = steps
 
     if with_profile:
         from torch.profiler import ProfilerActivity, profile
@@ -2489,6 +2553,38 @@ def lm_phases(dev, mem_rate: float, bf16_rate: float, with_profile: bool):
     return entries
 
 
+def dw_check(label: str, call, dtype, kind: str, fn, tol: float):
+    """A recorded weight-gradient call (x, dy, tile_eid, n_experts,
+    row_tile), cast to `dtype`, through `fn` against grouped_matmul_dw_ref:
+    max|got - plain| <= tol x max|plain|, and one launch of the `kind`
+    kernel and none of another.  Returns (max abs err, max|plain|)."""
+    import torch
+    from repro_torch.kernels.grouped_matmul import grouped_matmul as GMK
+    from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_dw_ref
+    x, dy, eid, e, rt = call
+    xc, dyc = x.to(dtype), dy.to(dtype)
+    keys = ("grouped_matmul_dw", "grouped_matmul_dw_wgmma",
+            "grouped_matmul_dw_fma")
+    before = {k: GMK.LAUNCHES[k] for k in keys}
+    got = fn(xc, dyc, eid, e, rt)
+    want = grouped_matmul_dw_ref(xc, dyc, eid, e, rt)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    moved = {k: GMK.LAUNCHES[k] - before[k] for k in keys}
+    print(f"{label} ({x.shape[0]} x {x.shape[1]} -> {dy.shape[1]}, {e} "
+          f"experts), {dtype} through {kind}: max abs err {err:.2e}, "
+          f"max|plain| {scale:.3g} ({err / scale:.2e}, tol {tol:g})")
+    if moved != {"grouped_matmul_dw": 1,
+                 "grouped_matmul_dw_wgmma": int(kind == "wgmma"),
+                 "grouped_matmul_dw_fma": int(kind == "fma")} or \
+            got.dtype != dtype or not err <= tol * scale:
+        raise AssertionError(f"{label}: grouped_matmul_dw ({kind}) disagrees "
+                             f"with its plain version ({dtype}), or ran "
+                             f"another kernel: launches {moved}")
+    return err, scale
+
+
 def train_phase(dev, mem_rate: float, bf16_rate: float,
                 with_profile: bool = False) -> dict:
     """Phase 12: the LM train step (see the module docstring).  Returns the
@@ -2641,8 +2737,6 @@ def train_phase(dev, mem_rate: float, bf16_rate: float,
     # its bound
     dw = dict.fromkeys(("n", "ms", "fma", "plain", "lib", "bound", "bytes",
                         "ops", "err", "rel", "err_f32", "rel_f32"), 0.0)
-    dw_keys = ("grouped_matmul_dw", "grouped_matmul_dw_wgmma",
-               "grouped_matmul_dw_fma")
     for j, (x, dy, eid, e, rt) in enumerate(dw_calls):
         cap = x.shape[0] // e
         if not torch.equal(eid.long(), torch.arange(e, device=dev)
@@ -2656,25 +2750,8 @@ def train_phase(dev, mem_rate: float, bf16_rate: float,
                  LM_BF16_TOL),
                 (torch.bfloat16, "fma", GMK.grouped_matmul_dw_fma,
                  LM_BF16_TOL)):
-            xc, dyc = x.to(dtype), dy.to(dtype)
-            before = {k: GMK.LAUNCHES[k] for k in dw_keys}
-            got = fn(xc, dyc, eid, e, rt)
-            want = grouped_matmul_dw_ref(xc, dyc, eid, e, rt)
-            torch.cuda.synchronize()
-            err = float((got.float() - want.float()).abs().max())
-            scale = float(want.float().abs().max())
-            moved = {k: GMK.LAUNCHES[k] - before[k] for k in dw_keys}
-            print(f"grouped_matmul_dw call {j} ({x.shape[0]} x {x.shape[1]} "
-                  f"-> {dy.shape[1]}, {e} experts), {dtype} through {kind}: "
-                  f"max abs err {err:.2e}, max|plain| {scale:.3g} "
-                  f"({err / scale:.2e}, tol {tol:g})")
-            if moved != {"grouped_matmul_dw": 1,
-                         "grouped_matmul_dw_wgmma": int(kind == "wgmma"),
-                         "grouped_matmul_dw_fma": int(kind == "fma")} or \
-                    got.dtype != dtype or not err <= tol * scale:
-                raise AssertionError(f"grouped_matmul_dw ({kind}) disagrees "
-                                     f"with its plain version ({dtype}), or "
-                                     f"ran another kernel: launches {moved}")
+            err, scale = dw_check(f"grouped_matmul_dw call {j}",
+                                  dw_calls[j], dtype, kind, fn, tol)
             if dtype == torch.float32:
                 dw["err_f32"] = max(dw["err_f32"], err)
                 dw["rel_f32"] = max(dw["rel_f32"], err / scale)
@@ -3244,6 +3321,721 @@ def config_forwards(dev) -> dict:
     return out
 
 
+def timed_generate(engine, prompts, n_new: int, runs: int):
+    """`engine.generate(prompts, n_new)` `runs` times, the first a warm-up,
+    with the prefill and each decode step timed on the host clock around
+    synchronised calls.  Returns (tokens, prefill ms and decode-step ms of
+    the runs after the warm-up, whole-call ms of each run); every run must
+    give the same tokens and take n_new decode steps."""
+    import numpy as np
+    import torch
+    step_ms = {"prefill": [], "decode": []}
+
+    def timed(fn, key):
+        def run(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            step_ms[key].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+    steps = (engine.prefill_step, engine.decode_step)
+    engine.prefill_step = timed(steps[0], "prefill")
+    engine.decode_step = timed(steps[1], "decode")
+    outs = []
+    try:
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks = engine.generate(prompts, max_new_tokens=n_new)
+            outs.append(((time.perf_counter() - t0) * 1e3, toks))
+    finally:
+        engine.prefill_step, engine.decode_step = steps
+    toks = outs[0][1]
+    if any(not np.array_equal(t, toks) for _, t in outs[1:]):
+        raise AssertionError("generate gave different tokens across runs")
+    if len(step_ms["decode"]) != runs * n_new:
+        raise AssertionError(f"{len(step_ms['decode'])} decode steps in "
+                             f"{runs} generate calls of {n_new} tokens")
+    return (toks, step_ms["prefill"][1:], step_ms["decode"][n_new:],
+            [ms for ms, _ in outs])
+
+
+def lm_launches() -> dict:
+    """The LM kernels' launch counts, those of no launch left out."""
+    from repro_torch.kernels.flash_attention import flash_attention as FAK
+    from repro_torch.kernels.flash_decode import flash_decode as FDK
+    from repro_torch.kernels.grouped_matmul import grouped_matmul as GMK
+    return {k: v for k, v in {**FAK.LAUNCHES, **GMK.LAUNCHES,
+                              **FDK.LAUNCHES}.items() if v}
+
+
+def reset_lm_launches() -> None:
+    from repro_torch.kernels.flash_attention import flash_attention as FAK
+    from repro_torch.kernels.flash_decode import flash_decode as FDK
+    from repro_torch.kernels.grouped_matmul import grouped_matmul as GMK
+    for mod in (FAK, GMK, FDK):
+        mod.reset_launch_counts()
+
+
+def path_check(label: str, engine, prompts, tokens, record=None,
+               keep_calls=None) -> list:
+    """The plain path teacher-forced on the kernel path's tokens (recording
+    its MoE routing, and the kernels' operands at `keep_calls`), then the
+    kernel path with that routing imposed: `lm_compare` at
+    LM_BF16_PATH_TOL.  Returns the relative error of each step."""
+    routes = []
+    with lm_kernels_through(**plain_lm(record, keep_calls)), \
+            routes_through(recording_route(routes)):
+        want = teacher_forced(engine, prompts, tokens)
+    impose = routes_through(imposed_route(routes)) if routes else \
+        contextlib.nullcontext()
+    with impose:
+        got = teacher_forced(engine, prompts, tokens)
+    ok, n_diff, n_close, rels = lm_compare(got, want, LM_BF16_PATH_TOL)
+    print(f"{label}: kernel path against the plain path teacher-forced on "
+          f"the generated tokens{' (plain routing imposed)' if routes else ''}"
+          f": logit rms {rms(want[0]):.3f}, relative error prefill "
+          f"{rels[0]:.2e}, decode steps max {max(rels[1:]):.2e} (tol "
+          f"{LM_BF16_PATH_TOL:g}); greedy tokens differing {n_diff}, "
+          f"{n_close} of them at a near tie")
+    if not ok:
+        raise AssertionError(f"{label}: kernel path differs from the plain "
+                             f"path beyond {LM_BF16_PATH_TOL:g} x max|plain|")
+    return rels
+
+
+def kernel_instance(label: str, kind: str, args, mem_rate: float,
+                    bf16_rate: float, l2_bytes: int) -> dict:
+    """One recorded bf16 call of a phase-14 path: the kernel held against
+    its plain version (LM_BF16_TOL x max|plain|) and timed beside it and
+    the library call at the same shapes (SDPA, or torch.bmm for
+    grouped_matmul), with its bound (phase 8's timing rule)."""
+    import torch
+    fns = lm_calls(kind, args)
+    got, want = fns[0](), fns[1]()
+    torch.cuda.synchronize()
+    scale = float(want.float().abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    if got.shape != want.shape or not bool(got.isfinite().all()) \
+            or err > LM_BF16_TOL * scale:
+        raise AssertionError(f"{label}: {kind} disagrees with its plain "
+                             f"version: max abs err {err}, max|plain| "
+                             f"{scale}")
+    del got, want
+    nbytes, flops = lm_work(kind, args)
+    copies = cold_copies(args, nbytes, l2_bytes)
+    calls = [lm_calls(kind, a) for a in copies]
+    ms, plain, lib = (graph_ms(rotating([c[i] for c in calls]), MLP_REPS)
+                      for i in range(3))
+    del calls, copies
+    b_bytes, b_ops = nbytes / mem_rate * 1e3, flops / bf16_rate * 1e3
+    shape = "x".join(str(n) for n in args[0].shape)
+    kw = args[-1] if isinstance(args[-1], dict) else {}
+    if kind == "grouped_matmul":
+        what = (f"x {shape} -> {args[2].shape[2]}, {args[2].shape[0]} "
+                f"experts", f"torch.bmm {lib:.4f}")
+    else:
+        unlike = [k for k in ("softcap", "window") if kw.get(k)]
+        what = (f"{shape} (softcap {kw.get('softcap')}, window "
+                f"{kw.get('window')})", f"SDPA {lib:.4f}" + (
+                    f" (no {', no '.join(unlike)})" if unlike else ""))
+    print(f"  {label} {kind} {what[0]}: {ms:.4f} ms a call, plain "
+          f"{plain:.4f}, {what[1]}, bound {max(b_bytes, b_ops):.4f} "
+          f"({'ops' if b_ops >= b_bytes else 'bytes'}); max abs err "
+          f"{err:.2e} = {err / scale:.2e} x max|plain|")
+    return {"shape": shape, "ms": ms, "plain_ms": plain, "library_ms": lib,
+            "bound_ms": max(b_bytes, b_ops),
+            "bound_by": "operations" if b_ops >= b_bytes else "bytes",
+            "max_abs_err": err, "softcap": kw.get("softcap")}
+
+
+def leaf_grad_norms(loss_fn, params, batch):
+    """One forward and backward of `loss_fn(params, batch)` with each
+    parameter leaf's gradient norm taken as it lands, then the gradient
+    dropped, so no whole gradient tree is held.  An expert weight leaf
+    (bodies, experts, ...) gives one norm an expert, `name[e]`.  Returns
+    ({name: norm}, metrics)."""
+    import torch
+    from repro_torch.models.params import flatten_tree, tree_map
+    tree = tree_map(lambda p: p.detach().requires_grad_(), params.tree())
+    sums: dict = {}
+
+    def land(key, expert):
+        def hook(p):
+            sq = p.grad.float().square()
+            sq = sq.sum((0, *range(2, sq.dim()))) if expert else sq.sum()
+            sums[key] = sums[key] + sq if key in sums else sq
+            p.grad = None
+        return hook
+    for name, p in flatten_tree(tree):
+        expert = name.rsplit(".", 1)[-1] in EXPERT_LEAVES and p.dim() == 4
+        p.register_post_accumulate_grad_hook(land(name, expert))
+    total, metrics = loss_fn(tree, batch)
+    total.backward()
+    del tree
+    norms = {}
+    for k, v in sums.items():
+        if v.dim():
+            norms.update((f"{k}[{e}]", n) for e, n in
+                         enumerate(v.sqrt().tolist()))
+        else:
+            norms[k] = float(v) ** 0.5
+    return norms, {k: float(v.detach()) for k, v in metrics.items()}
+
+
+def norms_rel(got: dict, want: dict) -> dict:
+    """Relative difference of each norm; a norm that is 0 in `want` must be
+    0 in `got` too."""
+    return {k: abs(got[k] - w) / w if w else (0.0 if got[k] == 0 else
+                                              float("inf"))
+            for k, w in want.items()}
+
+
+def jamba_phase(dev, mem_rate: float, bf16_rate: float,
+                l2_bytes: int) -> dict:
+    """Phase 14a (see the module docstring)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get as get_config
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.kernels.grouped_matmul import grouped_matmul as GMK
+    from repro_torch.kernels.grouped_matmul import ops as gmm_ops
+    from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref
+    from repro_torch.models import lm as LM
+    from repro_torch.models import registry
+    from repro_torch.nn import count_params
+    from repro_torch.serve.lm import ServeConfig, ServeEngine
+    from repro_torch.train import step as STEP
+    from torch.utils.checkpoint import checkpoint
+
+    cfg = get_config(RECURRENT_ARCHS[0]).replace(n_layers=JAMBA_LAYERS)
+    specs = LM.body_layout(cfg)
+    n_bodies = cfg.n_layers // cfg.block_pattern
+    n_attn = n_bodies * sum(s.kind == "attn" for s in specs)
+    n_moe = n_bodies * sum(s.ffn == "moe" for s in specs)
+    model = registry.build(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        torch.bfloat16, device=dev)
+    n_params = count_params(params)
+    weight_bytes = 2 * n_params
+    print(f"14a jamba: {cfg.name} at full width, one body of "
+          f"{cfg.n_layers} layers ({[s.kind + '/' + str(s.ffn) for s in specs]}"
+          f"; d_model {cfg.d_model}, d_inner {cfg.ssm_expand * cfg.d_model}, "
+          f"d_state {cfg.d_state}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.resolved_head_dim}, {cfg.n_experts} experts top-{cfg.topk}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}): {n_params / 1e9:.3f} B "
+          f"parameters in bf16 ({weight_bytes / 2**30:.2f} GiB) from "
+          f"torch.Generator(cuda).manual_seed(0); init peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    prompts = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (JAMBA_BATCH, JAMBA_PROMPT))
+    engine = ServeEngine(model, params, ServeConfig(max_len=JAMBA_MAX_LEN),
+                         device=dev)
+    reset_lm_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    toks, pre_ms, dec_ms, gen_ms = timed_generate(engine, prompts, JAMBA_NEW,
+                                                  RECURRENT_RUNS)
+    pre_ms, dec_ms = statistics.median(pre_ms), statistics.median(dec_ms)
+    launches = lm_launches()
+    want = {"flash_attention": n_attn, "flash_attention_wgmma": n_attn,
+            "grouped_matmul": 3 * n_moe, "grouped_matmul_wgmma": 3 * n_moe,
+            "flash_decode": n_attn * JAMBA_NEW}
+    want = {k: v * RECURRENT_RUNS for k, v in want.items() if v}
+    yardstick = weight_bytes / mem_rate * 1e3
+    print(f"14a jamba generate {JAMBA_BATCH} x {JAMBA_PROMPT} + {JAMBA_NEW} "
+          f"(ServeConfig(max_len={JAMBA_MAX_LEN}), bf16): runs "
+          f"{[round(v, 1) for v in gen_ms]} ms; prefill {pre_ms:.2f} ms "
+          f"(median), decode "
+          f"step {dec_ms:.3f} ms (median) against the weight-read yardstick "
+          f"{yardstick:.3f} ms (all {weight_bytes / 1e9:.2f} GB of bf16 "
+          f"weights at {mem_rate / 1e12:.2f} TB/s: the decode MoE is dense); "
+          f"peak {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
+          f"launches over {RECURRENT_RUNS} generate calls {launches}")
+    if launches != want:
+        raise AssertionError(f"jamba launches {launches}, expected {want}")
+    rec: dict = {}
+    # the prefill's first MoE sub-layer: its w_in (call 0) and w_out (2)
+    keep = {"flash_attention": {0}, "grouped_matmul": {0, 2},
+            "flash_decode": {n_attn * (JAMBA_NEW - 1)}}
+    rels = path_check("14a jamba bf16", engine, prompts, toks, rec, keep)
+    instances = {
+        "flash_attention": kernel_instance(
+            "jamba prefill", "flash_attention", rec["flash_attention"][0],
+            mem_rate, bf16_rate, l2_bytes),
+        "grouped_matmul": [kernel_instance(
+            f"jamba prefill MoE call {i}", "grouped_matmul",
+            rec["grouped_matmul"][i], mem_rate, bf16_rate, l2_bytes)
+            for i in sorted(keep["grouped_matmul"])],
+        "flash_decode": kernel_instance(
+            f"jamba decode step {JAMBA_NEW}", "flash_decode",
+            rec["flash_decode"][n_attn * (JAMBA_NEW - 1)], mem_rate,
+            bf16_rate, l2_bytes)}
+    del rec, engine
+
+    # one bf16 forward and backward of train_logits through the kernels and
+    # through the plain path, the plain path's routing imposed
+    tb = {k: torch.as_tensor(v, device=dev) for k, v in token_batch(
+        0, 0, *JAMBA_TRAIN, cfg.vocab_size).items()}
+    loss_fn = STEP.make_loss_fn(model, STEP.TrainConfig(
+        compute_dtype=torch.bfloat16, remat=False, use_chunked_ce=False))
+    # the plain grouped matmul gathers each tile's expert weights in
+    # float32 (3.76 GB a call at this width); under checkpoint its backward
+    # recomputes them instead of keeping all 12
+    plain = plain_lm()
+    gmm = plain["gmm"]
+    plain["gmm"] = lambda *a, **kw: checkpoint(gmm, *a, use_reentrant=False,
+                                               **kw)
+    routes = []
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with lm_kernels_through(**plain), \
+            routes_through(recording_route(routes)):
+        plain_norms, met_p = leaf_grad_norms(loss_fn, params, tb)
+    plain_s = time.perf_counter() - t0
+    plain_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    # the kernel run keeps the backward's first two dX and dW calls (the
+    # last MoE sub-layer's w_out and w_gate) for the checks below
+    real = {"dx": gmm_ops.grouped_matmul_dx_cuda,
+            "dw": gmm_ops.grouped_matmul_dw_cuda}
+    grad_calls = {"dx": [], "dw": []}
+
+    def keeping(kind):
+        def call(*a):
+            if len(grad_calls[kind]) < 2:
+                grad_calls[kind].append(tuple(
+                    t.detach() if torch.is_tensor(t) else t for t in a))
+            return real[kind](*a)
+        return call
+    reset_lm_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    gmm_ops.grouped_matmul_dx_cuda = keeping("dx")
+    gmm_ops.grouped_matmul_dw_cuda = keeping("dw")
+    t0 = time.perf_counter()
+    try:
+        with routes_through(imposed_route(routes)):
+            norms, met_k = leaf_grad_norms(loss_fn, params, tb)
+    finally:
+        gmm_ops.grouped_matmul_dx_cuda = real["dx"]
+        gmm_ops.grouped_matmul_dw_cuda = real["dw"]
+    kernel_s = time.perf_counter() - t0
+    train_launches = lm_launches()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    rel = norms_rel(norms, plain_norms)
+    worst = max(rel, key=rel.get)
+    loss_rel = abs(met_k["loss"] - met_p["loss"]) / abs(met_p["loss"])
+    n_exp = sum("[" in k for k in rel)
+    print(f"14a jamba train_logits {JAMBA_TRAIN[0]} x {JAMBA_TRAIN[1]} "
+          f"forward + backward (bf16, no optimiser): kernels {kernel_s:.2f} s"
+          f", plain {plain_s:.2f} s (first calls); peak {peak:.2f} GiB "
+          f"(plain run {plain_peak:.2f}); loss {met_k['loss']:.5f} vs plain "
+          f"{met_p['loss']:.5f} (relative {loss_rel:.2e}); gradient norms of "
+          f"{len(rel)} leaves ({n_exp} of them one expert of an expert leaf; "
+          f"each gradient normed as it lands, then dropped): worst {worst} "
+          f"{norms[worst]:.4g} vs {plain_norms[worst]:.4g} (relative "
+          f"{rel[worst]:.2e}, tol {GRAD_NORM_TOL:g}); worst of each "
+          f"sub-layer " + ", ".join(
+              f"{g} {max(v for k, v in rel.items() if k.startswith(g + '.')):.1e}"
+              for g in sorted({".".join(k.split(".")[:2]) for k in rel
+                               if k.startswith("layers.")}))
+          + f"; launches {train_launches}")
+    if rel[worst] > GRAD_NORM_TOL or loss_rel > GRAD_NORM_TOL:
+        raise AssertionError(f"jamba gradient norms differ from the plain "
+                             f"path's beyond {GRAD_NORM_TOL:g}: worst {worst}"
+                             f" {rel[worst]:.2e}, loss {loss_rel:.2e}")
+    if train_launches.get("grouped_matmul_dw") != 3 * n_moe or \
+            train_launches.get("grouped_matmul_dw_wgmma") != 3 * n_moe or \
+            train_launches.get("grouped_matmul_dx") != 3 * n_moe:
+        raise AssertionError(f"jamba backward launches {train_launches}: "
+                             f"expected {3 * n_moe} grouped_matmul_dx and "
+                             f"grouped_matmul_dw, all wgmma")
+
+    # the backward's kernels alone at jamba's shapes, against their plain
+    # versions: dX through the forward kernel on the transposed weights
+    if [len(v) for v in grad_calls.values()] != [2, 2]:
+        raise AssertionError(f"the jamba backward ran "
+                             f"{[len(v) for v in grad_calls.values()]} dX "
+                             f"and dW calls through the kept entry points")
+    grad_errs = {"dx": [], "dw": []}
+    for j, (dy, eid, w, rt) in enumerate(grad_calls["dx"]):
+        before = lm_launches()
+        got = GMK.grouped_matmul_dx_cuda(dy, eid, w, rt)
+        want = grouped_matmul_ref(dy, eid, w.transpose(1, 2), rt)
+        torch.cuda.synchronize()
+        moved = {k: v - before.get(k, 0) for k, v in lm_launches().items()
+                 if v != before.get(k, 0)}
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        print(f"jamba backward dX call {j} ({dy.shape[0]} x {dy.shape[1]} -> "
+              f"{w.shape[1]}, {w.shape[0]} experts), bf16: max abs err "
+              f"{err:.2e}, max|plain| {scale:.3g} ({err / scale:.2e}, tol "
+              f"{LM_BF16_TOL:g}); launches {moved}")
+        if moved != {"grouped_matmul": 1, "grouped_matmul_wgmma": 1,
+                     "grouped_matmul_dx": 1} or not err <= LM_BF16_TOL * scale:
+            raise AssertionError(f"jamba dX call {j} disagrees with its plain "
+                                 f"version, or ran another kernel")
+        grad_errs["dx"].append(err / scale)
+        del got, want
+    for j, call in enumerate(grad_calls["dw"]):
+        err, scale = dw_check(f"jamba backward dW call {j}", call,
+                              torch.bfloat16, "wgmma",
+                              GMK.grouped_matmul_dw_cuda, LM_BF16_TOL)
+        grad_errs["dw"].append(err / scale)
+    del grad_calls
+
+    # negative control at jamba's shapes: dW writing expert 0's gradient as
+    # zeros must fail the norms check
+    def dw_zero_expert0(x, dy, tile_eid, n_experts, row_tile=128):
+        out = real["dw"](x, dy, tile_eid, n_experts, row_tile)
+        out[0] = 0
+        return out
+    reset_lm_launches()
+    gmm_ops.grouped_matmul_dw_cuda = dw_zero_expert0
+    try:
+        with routes_through(imposed_route(routes)):
+            bad, _ = leaf_grad_norms(loss_fn, params, tb)
+    finally:
+        gmm_ops.grouped_matmul_dw_cuda = real["dw"]
+    ran = lm_launches().get("grouped_matmul_dw_wgmma")
+    rel_c = norms_rel(bad, plain_norms)
+    worst_c = max(rel_c, key=rel_c.get)
+    ok_c = rel_c[worst_c] <= GRAD_NORM_TOL
+    print(f"14a jamba negative control: grouped_matmul_dw (wgmma, {ran} "
+          f"launches) writing expert 0's gradient as zeros: worst leaf "
+          f"{worst_c} at {rel_c[worst_c]:.2e} (tol {GRAD_NORM_TOL:g}) -> "
+          f"{'ACCEPTED' if ok_c else 'rejected'}")
+    if ran != 3 * n_moe or ok_c:
+        raise AssertionError("the jamba gradient check accepts a dW without "
+                             "expert 0")
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"params": n_params, "prefill_ms": pre_ms, "decode_ms": dec_ms,
+            "weight_read_ms": yardstick, "rel_err": max(rels),
+            "launches": launches, "train_launches": train_launches,
+            "grad_norm_rel": rel[worst], "grad_kernel_rel": grad_errs,
+            "control_rel": rel_c[worst_c], "train_peak_gib": peak,
+            "plain_train_peak_gib": plain_peak, "instances": instances}
+
+
+def block_checks(dev) -> dict:
+    """Phase 14b's first part: one block of each recurrent kind at float32
+    on 1 x 256, on the card against the same call on the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get as get_config
+    from repro_torch.models import mamba as MB
+    from repro_torch.models import xlstm as XL
+    from repro_torch.models.params import flatten_tree, tree_map
+    jcfg, xcfg = (get_config(a) for a in RECURRENT_ARCHS[:2])
+    cases = (("mamba (jamba width)", jcfg, MB.mamba_init, MB.mamba_apply),
+             ("mLSTM (xlstm width)", xcfg, XL.mlstm_block_init,
+              XL.mlstm_block_apply),
+             ("sLSTM (xlstm width)", xcfg, XL.slstm_block_init,
+              XL.slstm_block_apply))
+    out = {}
+    for label, cfg, init, apply in cases:
+        p = init(torch.Generator().manual_seed(0), cfg)
+        x = torch.from_numpy(np.random.default_rng(4).normal(
+            size=(*BLOCK_SHAPE, cfg.d_model)).astype(np.float32))
+        with torch.no_grad():
+            want, wst = apply(p, cfg, x, mode="prefill")
+            t0 = time.perf_counter()
+            got, gst = apply(tree_map(lambda t: t.to(dev), p), cfg, x.to(dev),
+                             mode="prefill")
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        rels = {}
+        for name, w, g in [("out", want, got)] + [
+                (f"state.{n}", a, b) for (n, a), (_, b) in zip(
+                    flatten_tree(wst._asdict()), flatten_tree(gst._asdict()))]:
+            scale = float(w.abs().max())
+            ok = g.shape == w.shape and bool(g.isfinite().all())
+            rels[name] = float((g.cpu() - w).abs().max()) / max(scale, 1e-30)
+            if not ok or rels[name] > BLOCK_TOL:
+                raise AssertionError(f"{label} on the card differs from the "
+                                     f"CPU at {name}: {rels[name]:.2e} x "
+                                     f"max|cpu|")
+        print(f"14b block {label}, f32 {BLOCK_SHAPE[0]} x {BLOCK_SHAPE[1]}: "
+              f"card against CPU " + ", ".join(
+                  f"{k} {v:.2e}" for k, v in rels.items())
+              + f" x max|cpu| (tol {BLOCK_TOL:g}); card call {ms:.1f} ms "
+              "(first)")
+        out[label] = max(rels.values())
+    return out
+
+
+def trainer_run(label: str, arch: str, batch: int, seq: int, dev) -> dict:
+    """`repro_torch.launch.train.main` for RECURRENT_TRAIN_STEPS bf16 steps
+    in-process: losses finite; step_s (its StepTimer), training tokens/s
+    and peak memory printed."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import train as TRAIN
+    args = ["--arch", arch, "--compute-dtype", "bfloat16", "--batch",
+            str(batch), "--seq", str(seq), "--steps",
+            str(RECURRENT_TRAIN_STEPS), "--log-every", "1"]
+    rows = {}
+
+    def on_step(step, met, stats):
+        rows[step] = {"loss": met["loss"], "step_s": stats["step_s"]}
+    reset_lm_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    print(f"{label} trainer starts with "
+          f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB allocated, "
+          f"{torch.cuda.memory_reserved(dev) / 2**30:.2f} GiB reserved")
+    t0 = time.perf_counter()
+    TRAIN.main(args, on_step=on_step)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    if sorted(rows) != list(range(RECURRENT_TRAIN_STEPS)) or \
+            not all(np.isfinite(r["loss"]) for r in rows.values()):
+        raise AssertionError(f"{label}: trainer steps {rows}")
+    step_s = statistics.median(rows[s]["step_s"]
+                               for s in range(1, RECURRENT_TRAIN_STEPS))
+    print(f"{label} trainer: python -m repro_torch.launch.train "
+          f"{' '.join(args)}: losses {[round(r['loss'], 5) for r in rows.values()]}"
+          f", step_s {[round(r['step_s'] * 1e3, 1) for r in rows.values()]} ms"
+          f" (median after the first {step_s * 1e3:.1f} ms), "
+          f"{batch * seq / step_s:.0f} training tokens/s, peak "
+          f"{peak:.2f} GiB, wall {wall:.1f} s; launches {lm_launches()}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"step_ms": step_s * 1e3, "tokens_s": batch * seq / step_s,
+            "peak_gib": peak, "losses": [r["loss"] for r in rows.values()],
+            "launches": lm_launches()}
+
+
+def xlstm_phase(dev) -> dict:
+    """Phase 14b (see the module docstring)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get as get_config
+    from repro_torch.models import registry
+    from repro_torch.nn import count_params
+    from repro_torch.serve.lm import ServeConfig, ServeEngine
+    blocks = block_checks(dev)
+    cfg = get_config(RECURRENT_ARCHS[1])
+    model = registry.build(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        torch.bfloat16, device=dev)
+    print(f"14b xlstm: {cfg.name} at full width and depth ({cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}, {cfg.n_heads} heads, vocab "
+          f"{cfg.vocab_size}): {count_params(params) / 1e6:.1f} M parameters"
+          f" in bf16; init peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    prompts = np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (XLSTM_BATCH, XLSTM_PROMPT))
+    engine = ServeEngine(model, params, ServeConfig(max_len=LM_MAX_LEN),
+                         device=dev)
+    reset_lm_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    toks, pre_ms, dec_ms, gen_ms = timed_generate(engine, prompts, XLSTM_NEW,
+                                                  RECURRENT_RUNS)
+    pre_ms, dec_ms = statistics.median(pre_ms), statistics.median(dec_ms)
+    if toks.min() < 0 or toks.max() >= cfg.vocab_size:
+        raise AssertionError("xlstm generated tokens out of range")
+    print(f"14b xlstm generate {XLSTM_BATCH} x {XLSTM_PROMPT} + {XLSTM_NEW} "
+          f"(bf16; no kernel on this path): runs "
+          f"{[round(v, 1) for v in gen_ms]} ms; prefill {pre_ms:.2f} ms, "
+          f"decode step {dec_ms:.3f} ms (medians); peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; launches "
+          f"{lm_launches()}")
+    del engine, params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = trainer_run("14b xlstm", cfg.name,
+                        *RECURRENT_TRAIN[cfg.name], dev)
+    return {"blocks": blocks, "prefill_ms": pre_ms, "decode_ms": dec_ms,
+            "trainer": train}
+
+
+def gemma2_phase(dev, mem_rate: float, bf16_rate: float,
+                 l2_bytes: int) -> dict:
+    """Phase 14c (see the module docstring)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get as get_config
+    from repro_torch.models import lm as LM
+    from repro_torch.models import registry
+    from repro_torch.nn import count_params
+    from repro_torch.serve.lm import ServeConfig, ServeEngine
+    cfg = get_config(RECURRENT_ARCHS[2])
+    # the trainer first, on an empty allocator: its peak is near the card's
+    # size, so it must not meet segments held over from the serving runs
+    train = trainer_run("14c gemma2", cfg.name,
+                        *RECURRENT_TRAIN[cfg.name], dev)
+    specs = LM.body_layout(cfg)
+    n_bodies = cfg.n_layers // cfg.block_pattern
+    n_local = n_bodies * sum(s.window is not None for s in specs)
+    model = registry.build(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        torch.bfloat16, device=dev)
+    print(f"14c gemma2: {cfg.name} at full width and depth ({cfg.n_layers} "
+          f"layers, {n_local} of them local with window {cfg.sliding_window}"
+          f"; d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.resolved_head_dim}, softcaps {cfg.attn_softcap} / "
+          f"{cfg.final_softcap}, vocab {cfg.vocab_size}, tied head): "
+          f"{count_params(params) / 1e9:.3f} B parameters in bf16; init peak"
+          f" {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    prompts = np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (GEMMA_BATCH, GEMMA_PROMPT))
+    engine = ServeEngine(model, params, ServeConfig(max_len=LM_MAX_LEN),
+                         device=dev)
+    reset_lm_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    toks, pre_ms, dec_ms, gen_ms = timed_generate(engine, prompts, GEMMA_NEW,
+                                                  RECURRENT_RUNS)
+    pre_ms, dec_ms = statistics.median(pre_ms), statistics.median(dec_ms)
+    launches = lm_launches()
+    n = cfg.n_layers
+    want = {"flash_attention": n * RECURRENT_RUNS,
+            "flash_attention_wgmma": n * RECURRENT_RUNS,
+            "flash_decode": n * GEMMA_NEW * RECURRENT_RUNS}
+    print(f"14c gemma2 generate {GEMMA_BATCH} x {GEMMA_PROMPT} + {GEMMA_NEW} "
+          f"(bf16): runs {[round(v, 1) for v in gen_ms]} ms; prefill "
+          f"{pre_ms:.2f} ms, decode step {dec_ms:.3f} ms (medians); peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; launches "
+          f"over {RECURRENT_RUNS} generate calls {launches}")
+    if launches != want:
+        raise AssertionError(f"gemma2 launches {launches}, expected {want}")
+    rec: dict = {}
+    step = n * (GEMMA_NEW - 1) + 1       # the last step's first global layer
+    keep = {"flash_attention": set(range(n)), "grouped_matmul": set(),
+            "flash_decode": {step}}
+    rels = path_check("14c gemma2 bf16", engine, prompts, toks, rec, keep)
+    windows = [a[3]["window"] for a in rec["flash_attention"]]
+    if len(windows) != n or sum(w == cfg.sliding_window
+                                for w in windows) != n_local \
+            or any(a[3]["softcap"] != cfg.attn_softcap
+                   for a in rec["flash_attention"]):
+        raise AssertionError(f"gemma2 prefill attention windows {windows}")
+    instances = {
+        "flash_attention": kernel_instance(
+            "gemma2 prefill (global layer 1)", "flash_attention",
+            rec["flash_attention"][1], mem_rate, bf16_rate, l2_bytes),
+        "flash_decode": kernel_instance(
+            f"gemma2 decode step {GEMMA_NEW} (layer 1)", "flash_decode",
+            rec["flash_decode"][step], mem_rate, bf16_rate, l2_bytes)}
+    del rec
+
+    # one prefill past the window, through the kernels against the plain
+    # path: every logit
+    long = np.random.default_rng(7).integers(0, cfg.vocab_size,
+                                             (1, GEMMA_LONG))
+    batch = {"tokens": torch.as_tensor(long, device=dev),
+             "positions": torch.arange(GEMMA_LONG, device=dev)[None]}
+    rec = {}
+    with torch.no_grad():
+        with lm_kernels_through(**plain_lm(rec, {
+                "flash_attention": {0}, "grouped_matmul": set(),
+                "flash_decode": set()})):
+            want_l = model.prefill(engine.params, batch)[0]
+        reset_lm_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got_l = model.prefill(engine.params, batch)[0]
+        torch.cuda.synchronize()
+        long_ms = (time.perf_counter() - t0) * 1e3
+    long_launches = lm_launches()
+    ok, n_diff, n_close, long_rel = lm_compare([got_l], [want_l],
+                                               LM_BF16_PATH_TOL)
+    print(f"14c gemma2 prefill 1 x {GEMMA_LONG} (the {cfg.sliding_window}"
+          f"-token window binds): kernel path {long_ms:.1f} ms (first call), "
+          f"relative error {long_rel[0]:.2e} against the plain path (tol "
+          f"{LM_BF16_PATH_TOL:g}), greedy tokens differing {n_diff} ({n_close}"
+          f" at a near tie); launches {long_launches}")
+    if not ok or long_launches.get("flash_attention_wgmma") != n:
+        raise AssertionError(f"gemma2 long prefill: error {long_rel}, "
+                             f"launches {long_launches}")
+    # layer 0 is local: its attention alone, where the window binds
+    local = rec["flash_attention"][0]
+    if local[3]["window"] != cfg.sliding_window or \
+            local[0].shape[2] != GEMMA_LONG:
+        raise AssertionError(f"gemma2 long prefill layer 0: window "
+                             f"{local[3]['window']}, q {local[0].shape}")
+    instances["flash_attention_local"] = kernel_instance(
+        f"gemma2 prefill 1 x {GEMMA_LONG} (local layer 0)",
+        "flash_attention", local, mem_rate, bf16_rate, l2_bytes)
+    del rec, local
+    del want_l, got_l, engine, params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"prefill_ms": pre_ms, "decode_ms": dec_ms, "rel_err": max(rels),
+            "long_rel_err": long_rel[0], "long_ms": long_ms,
+            "launches": launches, "long_launches": long_launches,
+            "instances": instances, "trainer": train}
+
+
+def recurrent_phase(dev, mem_rate: float, bf16_rate: float) -> dict:
+    """Phase 14: the recurrent, hybrid and gemma2 LMs (see the module
+    docstring).  Returns their numbers for the result lines."""
+    import torch
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 14 (recurrent, hybrid and gemma2 LMs): "
+          f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB still "
+          f"allocated from earlier phases")
+    l2_bytes = getattr(torch.cuda.get_device_properties(dev),
+                       "L2_cache_size", 50 * 2**20)
+    out = {"jamba": jamba_phase(dev, mem_rate, bf16_rate, l2_bytes)}
+    print(smi_line())
+    out["xlstm"] = xlstm_phase(dev)
+    print(smi_line())
+    out["gemma2"] = gemma2_phase(dev, mem_rate, bf16_rate, l2_bytes)
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"phase 14 (recurrent, hybrid and gemma2 LMs): "
+          f"{out['wall_s']:.1f} s wall")
+    return out
+
+
+def recurrent_build_report(libs, n_sm: int) -> None:
+    """Phase 2, for phase 14: HGMMA, registers and spills of the
+    flash_attention_wgmma instances that jamba (head_dim 128, G 4) and
+    gemma2 (head_dim 256, G 2) take, and registers and spills of the
+    flash_decode instances of their decode steps."""
+    import torch
+    from repro_torch.configs import get as get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_decode import flash_decode as FDK
+    fa_regs = ptxas_kernels(build.build_log.get("flash_attention_wgmma", ""))
+    fd_regs = ptxas_kernels(build.build_log.get("flash_decode", ""))
+    for arch, batch in ((RECURRENT_ARCHS[0], JAMBA_BATCH),
+                        (RECURRENT_ARCHS[2], GEMMA_BATCH)):
+        cfg = get_config(arch)
+        hd, g = cfg.resolved_head_dim, cfg.n_heads // cfg.n_kv_heads
+        name = f"flash_attention_wgmma_kernelILi{hd}E"
+        regs = [v for k, v in fa_regs.items() if name in k]
+        if len(regs) != 1:
+            raise AssertionError(f"ptxas reports {len(regs)} kernels named "
+                                 f"{name}")
+        hgmma = sass_lines(libs["flash_attention_wgmma"], name, "HGMMA")
+        if not hgmma:
+            raise AssertionError(f"no HGMMA in {name}'s SASS")
+        print(f"SASS: {name} ({arch}'s prefill: head_dim {hd}, G {g}) holds "
+              f"{len(hgmma)} HGMMA instructions, e.g. "
+              f"{hgmma[0].split(';')[0]}; ptxas: {regs[0][0]} registers, "
+              f"spill stores/loads {regs[0][1]}/{regs[0][2]} bytes")
+        plan = FDK.plan_launch(
+            torch.empty((batch, cfg.n_heads, hd), dtype=torch.bfloat16,
+                        device="cuda"),
+            *[torch.empty((batch, LM_MAX_LEN, cfg.n_kv_heads, hd),
+                          dtype=torch.bfloat16, device="cuda")] * 2, n_sm)
+        fd_name = fd_kernel_name(plan, True)
+        fd = [v for k, v in fd_regs.items() if fd_name in k]
+        if len(fd) != 1:
+            raise AssertionError(f"ptxas reports {len(fd)} kernels named "
+                                 f"{fd_name}")
+        print(f"  ptxas: {fd_name} ({arch}'s decode step, {plan}): "
+              f"{fd[0][0]} registers, spill stores/loads {fd[0][1]}/"
+              f"{fd[0][2]} bytes")
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3354,6 +4146,8 @@ def main(argv) -> int:
         raise AssertionError(f"no HGMMA in {fa_name}'s SASS")
     print(f"SASS: {fa_name} holds {len(hgmma)} HGMMA instructions, e.g. "
           f"{hgmma[0].split(';')[0]}")
+    recurrent_build_report(
+        libs, torch.cuda.get_device_properties(0).multi_processor_count)
     # the sparse conv runs on the tensor cores in TF32: HMMA ... TF32 in each
     # instance (column tile width, fused or not) that the MinkUNet path takes
     module = MU.minkunet_init(torch.Generator().manual_seed(0))
@@ -3703,7 +4497,13 @@ def main(argv) -> int:
                   f"(busy {span_ms(evs) / wall:.3f}), spconv_fod_tc_kernel "
                   f"{span_ms(conv):.3f} ms over {len(conv)} launches")
 
-    # 14. result lines
+    # 14. the recurrent, hybrid and gemma2 LMs, after the earlier phases'
+    # objects are freed
+    del sites, engine, baseline, results, base_preds, fod_logits
+    print(smi_line())
+    recurrent = recurrent_phase(dev, mem_rate, bf16_rate)
+
+    # 15. result lines
     src = "src/repro_torch/kernels/spconv/csrc/spconv_tc.cu"
     plans = {f"level {lv}": sorted(d["plans"]) for lv, d in
              sorted(by_level.items())}
@@ -3768,7 +4568,33 @@ def main(argv) -> int:
                 "groups"},
     ] + lm_kernels + [train["entry"]]
     steady = train["trainer"]["launches_steady_step"]
+    paths = {"jamba_generate": recurrent["jamba"]["launches"],
+             "jamba_train_step": recurrent["jamba"]["train_launches"],
+             "gemma2_generate": recurrent["gemma2"]["launches"],
+             "gemma2_prefill_4608": recurrent["gemma2"]["long_launches"],
+             "xlstm_trainer_step": recurrent["xlstm"]["trainer"]["launches"],
+             "gemma2_trainer_step": recurrent["gemma2"]["trainer"]["launches"]}
+    jam, gem = (recurrent[a]["instances"] for a in ("jamba", "gemma2"))
+    instances = {
+        "flash_attention": {"jamba": jam["flash_attention"],
+                            "gemma2": gem["flash_attention"],
+                            "gemma2_local_4608":
+                                gem["flash_attention_local"]},
+        "flash_decode": {"jamba": jam["flash_decode"],
+                         "gemma2": gem["flash_decode"]},
+        "grouped_matmul": dict(zip(("jamba_w_in", "jamba_w_out"),
+                                   jam["grouped_matmul"]))}
     for entry in kernels:
+        kname = entry["name"]
+        if kname in ("flash_attention", "grouped_matmul", "flash_decode",
+                     "grouped_matmul_dw"):
+            entry["recurrent_launches"] = {
+                path: {k: v for k, v in counts.items()
+                       if k.removeprefix(kname).strip("_") in
+                       ("", "wgmma", "fma", "dx")}
+                for path, counts in paths.items()}
+        if kname in instances:
+            entry["instances"] = instances[kname]
         if entry["name"] in ("flash_attention", "grouped_matmul",
                              "grouped_matmul_dw"):
             entry["trainer_launches"] = {
@@ -3778,7 +4604,12 @@ def main(argv) -> int:
     print(json.dumps({"v1": {k: v1[k] for k in ("times", "served",
                                                   "d2_points", "d2_err")},
                       "train": {k: train[k] for k in ("steps", "parity",
-                                                      "trainer")}}))
+                                                      "trainer")},
+                      "recurrent": {
+                          "wall_s": recurrent["wall_s"],
+                          **{arch: {k: v for k, v in recurrent[arch].items()
+                                    if k != "instances"}
+                             for arch in ("jamba", "xlstm", "gemma2")}}}))
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -11,8 +11,9 @@ from typing import Optional, Tuple
 _REGISTRY: dict = {}
 
 _ARCH_MODULES = [  # ported
-    "granite_34b", "qwen15_4b", "qwen15_32b", "granite_moe_1b", "mixtral_8x7b",
-    "minkunet", "mini_minkunet",
+    "gemma2_2b", "granite_34b", "qwen15_4b", "qwen15_32b", "jamba_52b",
+    "xlstm_125m", "granite_moe_1b", "mixtral_8x7b", "minkunet",
+    "mini_minkunet",
 ]
 
 

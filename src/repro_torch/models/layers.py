@@ -26,8 +26,8 @@ from repro_torch.kernels.flash_decode import ops as fd_ops
 # norms
 # ---------------------------------------------------------------------------
 
-def norm_init(cfg: ArchConfig, d: int, device=None):
-    return nn.rmsnorm_init(d, device)
+def norm_init(cfg: ArchConfig, d: int, device=None, dtype=torch.float32):
+    return nn.rmsnorm_init(d, device, dtype)
 
 
 def norm_apply(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
@@ -82,14 +82,15 @@ class KVCache(NamedTuple):
     v: torch.Tensor
 
 
-def attention_init(gen: torch.Generator, cfg: ArchConfig):
+def attention_init(gen: torch.Generator, cfg: ArchConfig,
+                   dtype=torch.float32):
     d, h, hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
     hd = cfg.resolved_head_dim
     return {
-        "wq": nn.dense_init(gen, d, h * hd, use_bias=cfg.qkv_bias),
-        "wk": nn.dense_init(gen, d, hkv * hd, use_bias=cfg.qkv_bias),
-        "wv": nn.dense_init(gen, d, hkv * hd, use_bias=cfg.qkv_bias),
-        "wo": nn.dense_init(gen, h * hd, d, use_bias=False),
+        "wq": nn.dense_init(gen, d, h * hd, cfg.qkv_bias, dtype),
+        "wk": nn.dense_init(gen, d, hkv * hd, cfg.qkv_bias, dtype),
+        "wv": nn.dense_init(gen, d, hkv * hd, cfg.qkv_bias, dtype),
+        "wo": nn.dense_init(gen, h * hd, d, False, dtype),
     }
 
 
@@ -189,12 +190,12 @@ def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int,
 # ---------------------------------------------------------------------------
 
 def mlp_init(gen: torch.Generator, cfg: ArchConfig,
-             d_ff: Optional[int] = None):
+             d_ff: Optional[int] = None, dtype=torch.float32):
     d, f = cfg.d_model, d_ff or cfg.d_ff
-    p = {"wi": nn.dense_init(gen, d, f, use_bias=False),
-         "wo": nn.dense_init(gen, f, d, use_bias=False)}
+    p = {"wi": nn.dense_init(gen, d, f, False, dtype),
+         "wo": nn.dense_init(gen, f, d, False, dtype)}
     if cfg.gated_mlp:
-        p["wg"] = nn.dense_init(gen, d, f, use_bias=False)
+        p["wg"] = nn.dense_init(gen, d, f, False, dtype)
     return p
 
 

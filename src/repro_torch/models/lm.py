@@ -11,22 +11,28 @@ Modes: "train" (no state; `remat=True` checkpoints each body with
 `torch.utils.checkpoint`, as the reference `jax.checkpoint`s it, so only
 the bodies' boundary activations survive the forward), "prefill" (produce
 per-body states, stacked), "decode" (consume states and update them in
-place: the counterpart of the reference's donated buffers).  Only
-attention bodies are ported, with dense (gated or plain) or MoE FFNs, QKV
-bias, sliding windows, RMSNorm, RoPE and an untied head: what
-granite-moe-1b-a400m, qwen1.5-4b / 32b, granite-34b and mixtral-8x7b
-need.  `check_ported` raises NotImplementedError for the reference's other
-features (mamba/xLSTM layouts, M-RoPE, sandwich and local/global norms,
-embedding scale, tied embeddings, final softcap, layernorm).
+place: attention writes its KV slot into the stacked cache, and the
+recurrent mixers' new states are copied into the stacked tree; the
+counterpart of the reference's donated buffers).  Sub-layers are attention
+(dense or MoE FFN, QKV bias, sliding or local/global windows, softcaps),
+mamba (`models/mamba.py`, the jamba hybrid) and mLSTM / sLSTM
+(`models/xlstm.py`); gemma2's sandwich norms, embedding scale, tied head
+and final softcap are ported too.  `check_ported` raises
+NotImplementedError for the reference's M-RoPE and layernorm, which no
+ported config uses yet.
 
 `lm_init(generator, cfg, dtype, device=None)` draws the reference's shapes
 and distributions from a `torch.Generator` (on the generator's device) and
 returns a `ParamTree` on `resolve_device(device)`: the card unless the
-caller passes `device="cpu"`.
+caller passes `device="cpu"`.  Each leaf is drawn in float32 and cast to
+`dtype` as it is drawn, into stacked leaves, so the init's peak is the
+finished tree in `dtype` plus one body in `dtype` (none with one body) and
+the largest leaf in float32.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -36,32 +42,26 @@ from repro_torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as MB
 from repro_torch.models import moe as MOE
+from repro_torch.models import xlstm as XL
 from repro_torch.models.params import ParamTree, tree_map
 
 
 class SubLayerSpec(NamedTuple):
-    kind: str               # attn (the reference also has mamba/mlstm/slstm)
+    kind: str               # attn | mamba | mlstm | slstm
     ffn: Optional[str]      # dense | moe | None
     window: Optional[int]   # per-layer attention window
 
 
 # config features the reference's LM code has and the port does not run yet;
 # each comes back with the slice that registers a config needing it
-_UNPORTED_FLAGS = ("mrope", "sandwich_norm", "local_global", "embed_scale",
-                   "tie_embeddings")
+_UNPORTED_FLAGS = ("mrope",)
 
 
 def check_ported(cfg: ArchConfig) -> None:
     """Raise NotImplementedError for a config the port cannot run."""
-    if cfg.ssm_type is not None:
-        raise NotImplementedError(
-            f"{cfg.ssm_type} sub-layers are not ported yet (ROADMAP Queue A "
-            "item 5): "
-            "only attention bodies run in repro_torch")
     found = [f for f in _UNPORTED_FLAGS if getattr(cfg, f)]
-    if cfg.final_softcap is not None:
-        found.append("final_softcap")
     if cfg.norm != "rmsnorm":
         found.append(f"norm={cfg.norm!r}")
     if found:
@@ -75,12 +75,29 @@ def body_layout(cfg: ArchConfig):
     check_ported(cfg)
     subs = []
     for i in range(cfg.block_pattern):
+        if cfg.ssm_type == "xlstm":
+            kind = "slstm" if (cfg.slstm_every and
+                               i % cfg.slstm_every == cfg.slstm_every - 1) \
+                else "mlstm"
+            subs.append(SubLayerSpec(kind, None, None))
+            continue
+        if cfg.ssm_type == "mamba":
+            # jamba: one attention layer per attn_every, middle of the block
+            kind = "attn" if i == cfg.attn_every // 2 else "mamba"
+        else:
+            kind = "attn"
         if cfg.n_experts:
             ffn = "moe" if i % cfg.moe_every == cfg.moe_every - 1 else \
                 "dense"
         else:
             ffn = "dense" if cfg.d_ff else None
-        subs.append(SubLayerSpec("attn", ffn, cfg.sliding_window))
+        window = None
+        if kind == "attn" and cfg.sliding_window is not None:
+            if cfg.local_global:
+                window = cfg.sliding_window if i % 2 == 0 else None
+            else:
+                window = cfg.sliding_window
+        subs.append(SubLayerSpec(kind, ffn, window))
     return subs
 
 
@@ -105,38 +122,68 @@ def param_tree(params):
 # init
 # ---------------------------------------------------------------------------
 
-def _sublayer_init(gen, cfg: ArchConfig, spec: SubLayerSpec):
-    p: dict = {"norm_mix": L.norm_init(cfg, cfg.d_model, gen.device),
-               "mix": L.attention_init(gen, cfg)}
+_MIXER_INITS = {"attn": L.attention_init, "mamba": MB.mamba_init,
+                "mlstm": XL.mlstm_block_init, "slstm": XL.slstm_block_init}
+
+
+def _sublayer_init(gen, cfg: ArchConfig, spec: SubLayerSpec,
+                   dtype=torch.float32):
+    def norm():
+        return L.norm_init(cfg, cfg.d_model, gen.device, dtype)
+    p: dict = {"norm_mix": norm(), "mix": _MIXER_INITS[spec.kind](gen, cfg,
+                                                                  dtype=dtype)}
+    if cfg.sandwich_norm:
+        p["norm_mix_post"] = norm()
     if spec.ffn is not None:
-        p["norm_ffn"] = L.norm_init(cfg, cfg.d_model, gen.device)
+        p["norm_ffn"] = norm()
         if spec.ffn == "moe":
-            p["ffn"] = MOE.moe_init(gen, cfg)
+            p["ffn"] = MOE.moe_init(gen, cfg, dtype=dtype)
         else:
-            p["ffn"] = L.mlp_init(gen, cfg)
+            p["ffn"] = L.mlp_init(gen, cfg, dtype=dtype)
+        if cfg.sandwich_norm:
+            p["norm_ffn_post"] = norm()
     return p
 
 
-def body_init(gen, cfg: ArchConfig):
-    return {f"sub{i}": _sublayer_init(gen, cfg, s)
+def body_init(gen, cfg: ArchConfig, dtype=torch.float32):
+    return {f"sub{i}": _sublayer_init(gen, cfg, s, dtype)
             for i, s in enumerate(body_layout(cfg))}
+
+
+def _stacked_bodies(gen, cfg: ArchConfig, dtype):
+    """The bodies' leaves stacked on a leading axis: drawn body after body,
+    each body written into the stacked leaves once it is drawn (one body
+    is stacked as a view)."""
+    n_bodies = cfg.n_layers // cfg.block_pattern
+    stacked = None
+    for i in range(n_bodies):
+        body = body_init(gen, cfg, dtype)
+        if n_bodies == 1:
+            return tree_map(lambda x: x.unsqueeze(0), body)
+        if stacked is None:
+            stacked = tree_map(
+                lambda x: x.new_empty((n_bodies,) + tuple(x.shape)), body)
+        tree_map(lambda dst, src: dst[i].copy_(src), stacked, body)
+        del body
+    return stacked
 
 
 def lm_init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32,
             device=None) -> ParamTree:
-    """The reference's parameter tree (bodies stacked on a leading axis) as
-    a `ParamTree` in `dtype` on `resolve_device(device)`."""
+    """The reference's parameter tree (bodies stacked on a leading axis; no
+    `lm_head` when the embeddings are tied) as a `ParamTree` in `dtype` on
+    `resolve_device(device)`.  The values are the float32 draws cast to
+    `dtype`."""
     dev = resolve_device(device)
-    n_bodies = cfg.n_layers // cfg.block_pattern
     params = {
-        "embed": nn.embedding_init(gen, cfg.vocab_size, cfg.d_model),
-        "layers": _stack([body_init(gen, cfg) for _ in range(n_bodies)]),
-        "final_norm": L.norm_init(cfg, cfg.d_model, gen.device),
-        "lm_head": nn.dense_init(gen, cfg.d_model, cfg.vocab_size,
-                                 use_bias=False),
+        "embed": nn.embedding_init(gen, cfg.vocab_size, cfg.d_model, dtype),
+        "layers": _stacked_bodies(gen, cfg, dtype),
+        "final_norm": L.norm_init(cfg, cfg.d_model, gen.device, dtype),
     }
-    params = tree_map(lambda x: x.to(dev), nn.cast_floating(params, dtype))
-    return ParamTree(params)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = nn.dense_init(gen, cfg.d_model, cfg.vocab_size,
+                                          False, dtype)
+    return ParamTree(tree_map(lambda x: x.to(dev), params))
 
 
 # ---------------------------------------------------------------------------
@@ -145,22 +192,32 @@ def lm_init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32,
 
 def _sublayer_state(cfg: ArchConfig, spec: SubLayerSpec, batch: int,
                     max_len: int, dtype, device):
-    # SWA layers only ever hold a window of KV
-    eff = min(max_len, spec.window) if spec.window else max_len
-    return L.init_kv_cache(cfg, batch, eff, dtype, device)
+    if spec.kind == "attn":
+        # SWA layers only ever hold a window of KV
+        eff = min(max_len, spec.window) if spec.window else max_len
+        return L.init_kv_cache(cfg, batch, eff, dtype, device)
+    if spec.kind == "mamba":
+        # float32, whatever the cache dtype: the reference passes none
+        return MB.init_mamba_state(cfg, batch, device=device)
+    if spec.kind == "mlstm":
+        return XL.init_mlstm_state(cfg, batch, device)
+    if spec.kind == "slstm":
+        return XL.init_slstm_state(cfg, batch, dtype, device)
+    raise ValueError(spec.kind)
 
 
 def init_lm_state(cfg: ArchConfig, batch: int, max_len: int,
                   dtype=torch.bfloat16, device=None):
-    """Stacked per-body decode state (the serving 'KV cache' tree), zeros
-    on `resolve_device(device)`."""
+    """Stacked per-body decode state (the serving 'KV cache' tree) on
+    `resolve_device(device)`: one body's initial state (zeros, and -1e30
+    for the xLSTM stabilisers), each leaf in its own dtype, repeated over
+    the bodies."""
     dev = resolve_device(device)
     n_bodies = cfg.n_layers // cfg.block_pattern
     one = {f"sub{i}": _sublayer_state(cfg, s, batch, max_len, dtype, dev)
            for i, s in enumerate(body_layout(cfg))}
-    return tree_map(
-        lambda x: torch.zeros((n_bodies,) + tuple(x.shape), dtype=x.dtype,
-                              device=x.device), one)
+    return tree_map(lambda x: x.unsqueeze(0).repeat(
+        (n_bodies,) + (1,) * x.dim()), one)
 
 
 # ---------------------------------------------------------------------------
@@ -171,9 +228,23 @@ def sublayer_apply(p, cfg: ArchConfig, spec: SubLayerSpec, x, positions, *,
                    mode: str, state, cache_pos, moe_impl):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = L.norm_apply(cfg, p["norm_mix"], x)
-    h, new_state = L.attention_apply(
-        p["mix"], cfg, h, positions, layer_window=spec.window, mode=mode,
-        cache=state, cache_pos=cache_pos)
+    if spec.kind == "attn":
+        h, new_state = L.attention_apply(
+            p["mix"], cfg, h, positions, layer_window=spec.window, mode=mode,
+            cache=state, cache_pos=cache_pos)
+    elif spec.kind == "mamba":
+        h, new_state = MB.mamba_apply(p["mix"], cfg, h, mode=mode,
+                                      state=state)
+    elif spec.kind == "mlstm":
+        h, new_state = XL.mlstm_block_apply(p["mix"], cfg, h, mode=mode,
+                                            state=state)
+    elif spec.kind == "slstm":
+        h, new_state = XL.slstm_block_apply(p["mix"], cfg, h, mode=mode,
+                                            state=state)
+    else:
+        raise ValueError(spec.kind)
+    if cfg.sandwich_norm:
+        h = L.norm_apply(cfg, p["norm_mix_post"], h)
     x = x + h
 
     if spec.ffn is not None:
@@ -182,6 +253,8 @@ def sublayer_apply(p, cfg: ArchConfig, spec: SubLayerSpec, x, positions, *,
             h, aux = MOE.moe_apply(p["ffn"], cfg, h, impl=moe_impl)
         else:
             h = L.mlp_apply(p["ffn"], cfg, h)
+        if cfg.sandwich_norm:
+            h = L.norm_apply(cfg, p["norm_ffn_post"], h)
         x = x + h
     return x, new_state, aux
 
@@ -201,12 +274,32 @@ def body_apply(p, cfg: ArchConfig, x, positions, *, mode: str, states=None,
 
 
 def embed_tokens(params, cfg: ArchConfig, tokens):
-    return nn.embed(params["embed"], tokens)
+    x = nn.embed(params["embed"], tokens)
+    if cfg.embed_scale:
+        # sqrt(d_model) in float32, rounded to the activation dtype first
+        scale = torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32)
+        x = x * float(scale.to(x.dtype))
+    return x
 
 
 def lm_head(params, cfg: ArchConfig, x):
     x = L.norm_apply(cfg, params["final_norm"], x)
-    return nn.dense(params["lm_head"], x)
+    if cfg.tie_embeddings:
+        logits = x @ params["embed"]["emb"].T
+    else:
+        logits = nn.dense(params["lm_head"], x)
+    if cfg.final_softcap is not None:
+        logits = cfg.final_softcap * torch.tanh(
+            logits.to(torch.float32) / cfg.final_softcap)
+    return logits
+
+
+def _store(dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """Write a decode step's new state leaf into the stacked tree's view
+    (an attention cache leaf comes back as that view, already written)."""
+    if src is not dst:
+        dst.copy_(src)
+    return dst
 
 
 def lm_apply(params, cfg: ArchConfig, tokens, positions, *,
@@ -245,7 +338,10 @@ def lm_apply(params, cfg: ArchConfig, tokens, positions, *,
                                states=st, cache_pos=cache_pos,
                                moe_impl=moe_impl)
         aux = aux + a
-        per_body.append(nst)
+        if mode == "decode":
+            tree_map(_store, st, nst)
+        else:
+            per_body.append(nst)
     if mode == "train":
         new_states = None
     elif mode == "prefill":

@@ -28,17 +28,17 @@ from repro_torch.models.layers import act_fn
 
 
 def moe_init(gen: torch.Generator, cfg: ArchConfig,
-             d_ff: Optional[int] = None):
+             d_ff: Optional[int] = None, dtype=torch.float32):
     d, f, e = cfg.d_model, d_ff or cfg.d_ff, cfg.n_experts
     scale_in = 1.0 / math.sqrt(d)
     scale_out = 1.0 / math.sqrt(f)
     p = {
-        "router": nn.dense_init(gen, d, e, use_bias=False),
-        "w_in": nn.uniform_init(gen, (e, d, f), scale_in),
-        "w_out": nn.uniform_init(gen, (e, f, d), scale_out),
+        "router": nn.dense_init(gen, d, e, False, dtype),
+        "w_in": nn.uniform_init(gen, (e, d, f), scale_in, dtype),
+        "w_out": nn.uniform_init(gen, (e, f, d), scale_out, dtype),
     }
     if cfg.gated_mlp:
-        p["w_gate"] = nn.uniform_init(gen, (e, d, f), scale_in)
+        p["w_gate"] = nn.uniform_init(gen, (e, d, f), scale_in, dtype)
     return p
 
 

@@ -15,25 +15,30 @@ from repro_torch.models.params import ParamTree, flatten_tree, tree_map
 LN_EPS = 1e-6  # the reference's layernorm eps (torch's default is 1e-5)
 
 
-def uniform_init(gen: torch.Generator, shape, scale: float) -> torch.Tensor:
-    """Uniform in [-scale, scale) from `gen`, float32 on the generator's
-    device (a CUDA generator draws on the card)."""
-    return (torch.rand(shape, generator=gen, dtype=torch.float32,
-                       device=gen.device) * 2 - 1) * scale
+def uniform_init(gen: torch.Generator, shape, scale: float,
+                 dtype=torch.float32) -> torch.Tensor:
+    """Uniform in [-scale, scale) from `gen` on the generator's device (a
+    CUDA generator draws on the card): drawn in float32, then cast to
+    `dtype`, so a leaf's values do not depend on `dtype` beyond the cast."""
+    return ((torch.rand(shape, generator=gen, dtype=torch.float32,
+                        device=gen.device) * 2 - 1) * scale).to(dtype)
 
 
-def normal_init(gen: torch.Generator, shape, std: float) -> torch.Tensor:
-    """Normal(0, std**2) from `gen`, float32 on the generator's device."""
-    return torch.randn(shape, generator=gen, dtype=torch.float32,
-                       device=gen.device) * std
+def normal_init(gen: torch.Generator, shape, std: float,
+                dtype=torch.float32) -> torch.Tensor:
+    """Normal(0, std**2) from `gen` on the generator's device, drawn in
+    float32 and cast to `dtype`."""
+    return (torch.randn(shape, generator=gen, dtype=torch.float32,
+                        device=gen.device) * std).to(dtype)
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
-               use_bias: bool = True):
+               use_bias: bool = True, dtype=torch.float32):
     """The reference's `dense_init`: w uniform +-1/sqrt(fan_in), zero b."""
-    p = {"w": uniform_init(gen, (d_in, d_out), 1.0 / math.sqrt(max(1, d_in)))}
+    p = {"w": uniform_init(gen, (d_in, d_out), 1.0 / math.sqrt(max(1, d_in)),
+                           dtype)}
     if use_bias:
-        p["b"] = torch.zeros(d_out, device=gen.device)
+        p["b"] = torch.zeros(d_out, dtype=dtype, device=gen.device)
     return p
 
 
@@ -76,8 +81,8 @@ def layernorm_init(d: int, device=None):
             "bias": torch.zeros(d, device=device)}
 
 
-def rmsnorm_init(d: int, device=None):
-    return {"scale": torch.ones(d, device=device)}
+def rmsnorm_init(d: int, device=None, dtype=torch.float32):
+    return {"scale": torch.ones(d, dtype=dtype, device=device)}
 
 
 def rmsnorm(p, x: torch.Tensor, eps: float = LN_EPS) -> torch.Tensor:
@@ -89,9 +94,10 @@ def rmsnorm(p, x: torch.Tensor, eps: float = LN_EPS) -> torch.Tensor:
     return (y * p["scale"]).to(x.dtype)
 
 
-def embedding_init(gen: torch.Generator, vocab: int, d: int):
+def embedding_init(gen: torch.Generator, vocab: int, d: int,
+                   dtype=torch.float32):
     """The reference's `embedding_init`: normal * 0.02."""
-    return {"emb": normal_init(gen, (vocab, d), 0.02)}
+    return {"emb": normal_init(gen, (vocab, d), 0.02, dtype)}
 
 
 def embed(p, ids: torch.Tensor) -> torch.Tensor:

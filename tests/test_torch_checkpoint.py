@@ -276,3 +276,29 @@ def test_manager_drops_a_pending_save_and_snapshots_before_queuing(
     with pytest.raises(OSError, match="disk full"):
         mgr.wait()
     mgr.close()
+
+
+def test_tied_tree_crosses_between_the_packages(tmp_path):
+    """gemma2-2b's tree has no `lm_head` (tied embeddings): a checkpoint of
+    either package restores bit-equal in the other, in bfloat16 too."""
+    arch = "gemma2-2b"
+    rmodel = RR.build(RC.get(arch, reduced=True))
+    module = TR.build(tget(arch, reduced=True)).init(
+        torch.Generator().manual_seed(0), torch.bfloat16, device="cpu")
+    tree = module.tree()
+    assert "lm_head" not in tree
+    struct = jax.eval_shape(lambda: rmodel.init(jax.random.key(0),
+                                                jnp.bfloat16))
+    ST.save(str(tmp_path / "port"), 1, tree)
+    got = RST.restore(str(tmp_path / "port"), 1, struct)
+    flat_got, flat_want = _flat_ref(got), _flat_port(tree)
+    assert list(flat_got) == list(flat_want)
+    for k, want in flat_want.items():
+        assert str(flat_got[k].dtype) == "bfloat16", k
+        np.testing.assert_array_equal(_bits(flat_got[k]), _bits(want),
+                                      err_msg=k)
+    RST.save(str(tmp_path / "ref"), 2, got)
+    back = ST.restore(str(tmp_path / "ref"), 2, jax.tree_util.tree_map(
+        torch.zeros_like, tree), device="cpu")
+    for k, want in _flat_port(back).items():
+        assert torch.equal(want, flat_want[k]), k

@@ -1130,3 +1130,27 @@ def test_minkunet_init_from_a_card_generator_is_on_the_card():
     for (name, a), (_, b) in zip(module.state_dict().items(),
                                  cpu.state_dict().items()):
         assert a.shape == b.shape, name
+
+
+@pytest.mark.gpu
+def test_recurrent_lm_init_and_state_from_a_card_generator_are_on_the_card():
+    """Reduced jamba (mamba, attention and MoE sub-layers) and xlstm (mLSTM
+    and sLSTM): every parameter drawn from a card generator and every
+    decode-state leaf lies on the card, in the dtypes asked for (the
+    recurrent states' own float32 leaves aside)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs import get
+    from repro_torch.models import registry
+    from repro_torch.models.params import flatten_tree
+    for arch in ("jamba-v0.1-52b", "xlstm-125m"):
+        model = registry.build(get(arch, reduced=True))
+        module = model.init(torch.Generator(device="cuda").manual_seed(0),
+                            torch.bfloat16)
+        assert {p.device.type for p in module.parameters()} == {"cuda"}
+        assert {p.dtype for p in module.parameters()} == {torch.bfloat16}
+        state = model.init_state(2, 32, torch.bfloat16)
+        leaves = dict(flatten_tree(state))
+        assert {x.device.type for x in leaves.values()} == {"cuda"}, arch
+        assert {x.dtype for x in leaves.values()} <= {torch.bfloat16,
+                                                      torch.float32}

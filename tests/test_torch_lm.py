@@ -253,20 +253,13 @@ def test_unported_paths_raise():
         TM.moe_apply(None, None, None, impl="ep")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TR.build(tget(ARCH).replace(family="audio"))
-    cfg = tget(ARCH, reduced=True).replace(ssm_type="mamba", attn_every=2,
-                                           block_pattern=2)
-    with pytest.raises(NotImplementedError, match="mamba"):
+    cfg = tget(ARCH, reduced=True).replace(mrope=True)
+    with pytest.raises(NotImplementedError, match="mrope"):
         TR.build(cfg).init(torch.Generator(), device="cpu")
 
 
 @pytest.mark.parametrize("change,named", [
-    (dict(ssm_type="xlstm", slstm_every=2), "xlstm"),
     (dict(mrope=True), "mrope"),
-    (dict(sandwich_norm=True), "sandwich_norm"),
-    (dict(sliding_window=4, local_global=True), "local_global"),
-    (dict(embed_scale=True), "embed_scale"),
-    (dict(tie_embeddings=True), "tie_embeddings"),
-    (dict(final_softcap=30.0), "final_softcap"),
     (dict(norm="layernorm"), "layernorm")])
 def test_unported_config_features_raise(change, named):
     """A config feature the port does not run raises at init, at state
@@ -286,3 +279,85 @@ def test_unported_config_features_raise(change, named):
         model.prefill(params, batch)
     with pytest.raises(NotImplementedError, match=named):
         TLM.lm_apply(params, cfg, batch["tokens"], batch["positions"])
+
+
+@pytest.mark.parametrize("change,named", [
+    (dict(ssm_type="xlstm", slstm_every=2), "xlstm"),
+    (dict(sandwich_norm=True), "sandwich_norm"),
+    (dict(sliding_window=8, local_global=True), "local_global"),
+    (dict(embed_scale=True), "embed_scale"),
+    (dict(tie_embeddings=True), "tie_embeddings"),
+    (dict(final_softcap=30.0), "final_softcap")])
+def test_config_feature_alone_matches_reference(change, named):
+    """Each of the features this slice ports, alone on reduced granite:
+    the float32 forward of 12 positions (the local_global window of 8
+    binds) within 1e-4 x max|reference|, and greedy tokens from 4-token
+    prompts equal (the local layers' 8-slot ring wraps)."""
+    from repro_torch.data.synthetic import token_batch
+    from tests.test_torch_configs import _impose, _recorded_routes
+    from tests.torch_parity import jit, reference_tree
+    cfg = tget(ARCH, reduced=True).replace(**change)
+    rmodel = RR.build(RC.get(ARCH, reduced=True).replace(**change))
+    tmodel = TR.build(cfg)
+    module = tmodel.init(torch.Generator().manual_seed(0), device="cpu")
+    rparams = reference_tree(module, rmodel.init, jax.random.key(0))
+    load_jax_params(module, jax.tree_util.tree_map(np.asarray, rparams))
+    assert ("lm_head.w" in module.state_dict()) != cfg.tie_embeddings
+    batch = token_batch(3, 0, B, S, cfg.vocab_size)
+    rb = {k: jnp.asarray(v) for k, v in batch.items()}
+    with pytest.MonkeyPatch.context() as mp:
+        if cfg.n_experts and cfg.ssm_type is None:
+            want, routes = _recorded_routes(rmodel, rparams, rb, mp)
+            _impose(routes, mp)
+        else:
+            want, _ = jit(rmodel.train_logits)(rparams, rb)
+        with torch.no_grad():
+            got, _ = tmodel.train_logits(module, {
+                k: torch.from_numpy(v) for k, v in batch.items()})
+    want = np.asarray(want)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-4 * float(np.abs(want).max()))
+    prompts = np.random.default_rng(2).integers(0, 256, (B, 4)) \
+        .astype(np.int32)
+    rgen = RServeEngine(rmodel, rparams, RServeConfig(
+        max_len=16, cache_dtype=jnp.float32,
+        compute_dtype=jnp.float32)).generate(prompts, max_new_tokens=8)
+    tgen = ServeEngine(tmodel, module, ServeConfig(
+        max_len=16, cache_dtype=torch.float32, compute_dtype=torch.float32),
+        device="cpu").generate(prompts, max_new_tokens=8)
+    np.testing.assert_array_equal(tgen, np.asarray(rgen))
+
+
+def _init_as_before(cfg, dtype):
+    """`lm_init`'s earlier algorithm: every leaf drawn in float32, each
+    body's dict kept, the bodies stacked, then the whole tree cast."""
+    from repro_torch import nn
+    from repro_torch.models import layers as TL
+    from repro_torch.models import lm as TLM
+    gen = torch.Generator().manual_seed(0)
+    n = cfg.n_layers // cfg.block_pattern
+    params = {"embed": nn.embedding_init(gen, cfg.vocab_size, cfg.d_model),
+              "layers": TLM._stack([TLM.body_init(gen, cfg)
+                                    for _ in range(n)]),
+              "final_norm": TL.norm_init(cfg, cfg.d_model)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = nn.dense_init(gen, cfg.d_model, cfg.vocab_size,
+                                          use_bias=False)
+    return dict(flatten_tree(nn.cast_floating(params, dtype)))
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mixtral-8x7b",
+                                  "jamba-v0.1-52b", "xlstm-125m",
+                                  "gemma2-2b"])
+def test_lm_init_casts_each_leaf_as_drawn_to_the_same_values(arch):
+    """`lm_init` casts each leaf as it is drawn and writes it into the
+    stacked leaves: the same draws in the same order as drawing the whole
+    tree in float32 and casting after, bit for bit."""
+    cfg = tget(arch, reduced=True)
+    for dtype in (torch.float32, torch.bfloat16):
+        got = TR.build(cfg).init(torch.Generator().manual_seed(0), dtype,
+                                 device="cpu").state_dict()
+        want = _init_as_before(cfg, dtype)
+        assert set(got) == set(want)
+        for k, w in want.items():
+            assert got[k].dtype == dtype and torch.equal(got[k], w), k
