@@ -18,8 +18,10 @@ Phases (any failure exits non-zero; none catches its own):
      those two instances' registers and spills (ptxas -v) are printed;
      HGMMA, registers and spills of the `flash_attention_wgmma_kernel`
      instances that phase 14's jamba (head_dim 128) and gemma2 (head_dim
-     256) prefills take, and registers and spills of the
-     `flash_decode_kernel` instances of their decode steps; and
+     256) prefills and phase 15's qwen2-vl (head_dim 128, G 8) and
+     seamless decoder (head_dim 64, G 1) prefills take, and registers and
+     spills of the `flash_decode_kernel` instances of their decode steps;
+     and
      `HMMA ... TF32` in every `spconv_fod_tc_kernel` instance (column tile,
      fused or not) that the MinkUNet path takes, with its registers and
      spills, and in every `fused_mlp_tc_kernel` instance that a
@@ -329,13 +331,41 @@ Phases (any failure exits non-zero; none catches its own):
      flash_decode, and its local layer 0's flash_attention in the 1 x
      4608 prefill, where the window binds (SDPA has no softcap and no
      window).  The phase's wall is printed.
-  15. a {"v1": ..., "train": {..., "trainer": ...}, "recurrent": ...} line,
+  15. qwen2-vl and the encoder-decoder, random bf16 weights from a CUDA
+     generator, each path run MM_RUNS times (the first a warm-up; prefill
+     and decode-step ms on the host clock, medians) and then the plain
+     path teacher-forced on the kernel path's tokens: every prefill and
+     decode logit within MM_TOL x max|plain|.
+     15a. qwen2-vl-72b at full width (d_model 8192, 64 / 8 heads of 128,
+     d_ff 29568, vocab 152064) and 8 of its 80 layers (all 80 do not fit
+     on one card): B 2, 256 patch embeddings (a 16 x 16 grid at t = 0,
+     (h, w) ids from the grid) before 768 text tokens whose three ids
+     continue from the grid's largest + 1, then 16 decode steps with
+     (B, 1, 3) positions.  Launches: flash_attention 8 a prefill, all
+     wgmma (head_dim 128, G 8); flash_decode 8 a step.
+     15b. seamless-m4t-medium at full width and depth (12 encoder + 12
+     decoder layers, d_model 1024, 16 heads of 64, vocab 256206): B 4,
+     1024 seeded frame embeddings, 256 decoder tokens (1024 /
+     AUDIO_DEC_FRACTION), then 32 decode steps over the cross cache.
+     Launches: flash_attention 12 a prefill, all wgmma (head_dim 64, G 1);
+     flash_decode 12 a step.  One more prefill splits out the plain
+     encoder and cross-attention time (CUDA events around each call); one
+     bf16 forward and backward of the train step (remat, chunked CE) on
+     the same batch: loss and every gradient finite, 24 wgmma
+     flash_attention launches, peak memory printed.
+     Each path's first flash_attention call and its last step's first
+     flash_decode call, recorded in the plain run, are held alone against
+     their plain versions and timed beside SDPA with the bound, as in
+     phase 14.  The phase's wall is printed.
+  16. a {"v1": ..., "train": {..., "trainer": ...}, "recurrent": ...,
+     "multimodal": ...} line,
      a {"kernels": [...]} line (seven kernels; flash_attention,
      grouped_matmul and grouped_matmul_dw carry phase 13's counts as
      `trainer_launches`, and the four LM kernels phase 14's counts by path
-     as `recurrent_launches`; flash_attention, flash_decode and
-     grouped_matmul carry phase 14's timed instances as `instances`), the
-     nvidia-smi line, and last
+     as `recurrent_launches`; flash_attention and flash_decode phase 15's
+     as `multimodal_launches`; flash_attention, flash_decode and
+     grouped_matmul carry phases 14 and 15's timed instances as
+     `instances`), the nvidia-smi line, and last
      the {"ok": true, "device": {...}} line.
 
 `--profile` adds torch.profiler tables of one segment hit and one miss
@@ -354,6 +384,7 @@ import contextlib
 import gc
 import itertools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -439,6 +470,14 @@ GEMMA_BATCH, GEMMA_PROMPT, GEMMA_NEW = 4, 512, 32
 GEMMA_LONG = 4608            # 14c: a prefill past gemma2's 4096 window
 RECURRENT_TRAIN = {"xlstm-125m": (4, 512), "gemma2-2b": (2, 512)}
 RECURRENT_TRAIN_STEPS = 3
+MM_ARCHS = ("qwen2-vl-72b", "seamless-m4t-medium")   # phase 15
+MM_RUNS = 3                  # runs of each path, the first a warm-up
+MM_TOL = LM_BF16_PATH_TOL    # bf16 logits, kernel path against plain path
+MM_EMBED_STD = 0.02          # the stub frontends' embeddings: the token
+                             # table's scale
+QWEN_LAYERS = 8              # 15a: 8 of qwen2-vl's 80 layers
+QWEN_BATCH, QWEN_GRID, QWEN_TEXT, QWEN_NEW = 2, 16, 768, 16
+SEAMLESS_BATCH, SEAMLESS_ENC, SEAMLESS_NEW = 4, 1024, 32   # 15b
 
 
 def smi_line() -> str:
@@ -3994,19 +4033,344 @@ def recurrent_phase(dev, mem_rate: float, bf16_rate: float) -> dict:
     return out
 
 
-def recurrent_build_report(libs, n_sm: int) -> None:
-    """Phase 2, for phase 14: HGMMA, registers and spills of the
-    flash_attention_wgmma instances that jamba (head_dim 128, G 4) and
-    gemma2 (head_dim 256, G 2) take, and registers and spills of the
+def grid_positions(batch: int, grid: int, s_txt: int, dev):
+    """(B, grid^2 + s_txt, 3) M-RoPE ids: an image of grid x grid patches
+    at t = 0 with its (h, w) ids, then the text's (n, n, n) from the grid's
+    largest id + 1."""
+    import torch
+    h, w = torch.meshgrid(torch.arange(grid), torch.arange(grid),
+                          indexing="ij")
+    img = torch.stack([torch.zeros(grid * grid, dtype=torch.int64),
+                       h.reshape(-1), w.reshape(-1)], -1)
+    txt = (grid + torch.arange(s_txt))[:, None].expand(s_txt, 3)
+    return torch.cat([img, txt]).to(dev).expand(batch, -1, -1)
+
+
+def mm_run(model, params, batch, step_positions, n_new: int, state,
+           tokens=None):
+    """`model.prefill(params, batch)`, its states copied into the first
+    slots of the zeroed decode `state`, then `n_new` decode steps fed the
+    greedy tokens, or `tokens` (B, n_new) where given; `step_positions(t)`
+    gives step t's positions.  Returns (the tokens fed (B, n_new), float32
+    logits of the prefill and of each step, prefill ms, each step's ms),
+    times on the host clock around synchronised calls."""
+    import torch
+    from repro_torch.models.params import tree_map
+    b = batch["tokens"].shape[0]
+    dev = batch["tokens"].device
+
+    def timed(fn, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def place(dst, src):
+        dst[tuple(slice(0, n) for n in src.shape)].copy_(src)
+        return dst
+    with torch.no_grad():
+        (logits, pre, _), pre_ms = timed(model.prefill, params, batch)
+        s0 = logits.shape[1]
+        tree_map(place, state, pre)
+        out = [logits.float()]
+        tok = logits[:, -1].argmax(-1) if tokens is None else tokens[:, 0]
+        del pre, logits
+        fed, step_ms = [], []
+        for t in range(n_new):
+            fed.append(tok)
+            db = {"tokens": tok[:, None], "positions": step_positions(t),
+                  "cache_pos": torch.full((b,), s0 + t, dtype=torch.int64,
+                                          device=dev)}
+            (logits, state, _), ms = timed(model.decode, params, db, state)
+            step_ms.append(ms)
+            out.append(logits[:, -1].float())
+            if t + 1 < n_new:
+                tok = logits[:, -1].argmax(-1) if tokens is None \
+                    else tokens[:, t + 1]
+    return torch.stack(fed, 1), out, pre_ms, step_ms
+
+
+def mm_generate(label: str, model, params, batch, step_positions,
+                n_new: int, new_state, n_layers: int, mem_rate: float,
+                bf16_rate: float, l2_bytes: int) -> dict:
+    """MM_RUNS greedy runs of `mm_run` through the kernels (the first a
+    warm-up; equal tokens; launches counted: flash_attention `n_layers` a
+    prefill, all wgmma, flash_decode `n_layers` a step), then the plain
+    path teacher-forced on those tokens: logits within MM_TOL x
+    max|plain|.  The plain run's first flash_attention call and its last
+    step's first flash_decode call are held alone and timed
+    (`kernel_instance`).  `new_state()` gives a zeroed decode state."""
+    import torch
+    reset_lm_launches()
+    torch.cuda.reset_peak_memory_stats()
+    pre_ms, dec_ms, toks, got = [], [], None, None
+    for r in range(MM_RUNS):
+        fed, logits, p_ms, s_ms = mm_run(model, params, batch,
+                                         step_positions, n_new, new_state())
+        if toks is None:
+            toks, got = fed, logits
+        elif not torch.equal(fed, toks):
+            raise AssertionError(f"{label}: runs gave different tokens")
+        if r:
+            pre_ms.append(p_ms)
+            dec_ms += s_ms
+        del logits
+    launches = lm_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = {"flash_attention": n_layers * MM_RUNS,
+            "flash_attention_wgmma": n_layers * MM_RUNS,
+            "flash_decode": n_layers * n_new * MM_RUNS}
+    pre_ms, dec_ms = statistics.median(pre_ms), statistics.median(dec_ms)
+    b, s_tok = batch["tokens"].shape
+    print(f"{label} prefill of {b} x {got[0].shape[1]} rows + {n_new} decode "
+          f"steps (bf16): prefill {pre_ms:.2f} ms, decode step {dec_ms:.3f} "
+          f"ms (medians of {MM_RUNS - 1} runs after a warm-up); peak "
+          f"{peak:.2f} GiB; launches over {MM_RUNS} runs {launches}")
+    if launches != want:
+        raise AssertionError(f"{label} launches {launches}, expected {want}")
+    rec: dict = {}
+    last = n_layers * (n_new - 1)
+    keep = {"flash_attention": {0}, "grouped_matmul": set(),
+            "flash_decode": {last}}
+    with lm_kernels_through(**plain_lm(rec, keep)):
+        _, want_l, _, _ = mm_run(model, params, batch, step_positions, n_new,
+                                 new_state(), toks)
+    ok, n_diff, n_close, rels = lm_compare(got, want_l, MM_TOL)
+    print(f"{label}: kernel path against the plain path teacher-forced on "
+          f"the generated tokens: logit rms {rms(want_l[0]):.3f}, relative "
+          f"error prefill {rels[0]:.2e}, decode steps max {max(rels[1:]):.2e}"
+          f" (tol {MM_TOL:g}); greedy tokens differing {n_diff}, {n_close} "
+          f"of them at a near tie")
+    if not ok:
+        raise AssertionError(f"{label}: kernel path differs from the plain "
+                             f"path beyond {MM_TOL:g} x max|plain|")
+    del got, want_l
+    instances = {
+        "flash_attention": kernel_instance(
+            f"{label} prefill (layer 0)", "flash_attention",
+            rec["flash_attention"][0], mem_rate, bf16_rate, l2_bytes),
+        "flash_decode": kernel_instance(
+            f"{label} decode step {n_new} (layer 0)", "flash_decode",
+            rec["flash_decode"][last], mem_rate, bf16_rate, l2_bytes)}
+    return {"prefill_ms": pre_ms, "decode_ms": dec_ms, "rel_err": max(rels),
+            "tokens_differing": n_diff, "peak_gib": peak,
+            "launches": launches, "instances": instances}
+
+
+def qwen2vl_phase(dev, mem_rate: float, bf16_rate: float,
+                  l2_bytes: int) -> dict:
+    """Phase 15a (see the module docstring)."""
+    import torch
+    from repro_torch.configs import get as get_config
+    from repro_torch.models import registry
+    from repro_torch.nn import count_params
+    cfg = get_config(MM_ARCHS[0]).replace(n_layers=QWEN_LAYERS)
+    model = registry.build(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        torch.bfloat16, device=dev)
+    n_params = count_params(params)
+    per_layer = count_params(params.tree()["layers"]) / cfg.n_layers
+    print(f"15a qwen2-vl: {cfg.name} at full width, {cfg.n_layers} of its 80 "
+          f"layers (d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+          f"heads of {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, M-RoPE sections {cfg.mrope_sections}): "
+          f"{n_params / 1e9:.3f} B parameters in bf16 "
+          f"({2 * n_params / 1e9:.2f} GB; {per_layer / 1e6:.1f} M a layer, "
+          f"so all 80 would take "
+          f"{2 * (n_params + (80 - cfg.n_layers) * per_layer) / 1e9:.1f} GB)"
+          f"; init peak {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} "
+          f"GiB")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    b, s_img = QWEN_BATCH, QWEN_GRID ** 2
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, QWEN_TEXT),
+                                     generator=gen, device=dev),
+             "patch_embeds": (torch.randn((b, s_img, cfg.d_model),
+                                          generator=gen, device=dev)
+                              * MM_EMBED_STD).to(torch.bfloat16),
+             "positions": grid_positions(b, QWEN_GRID, QWEN_TEXT, dev)}
+    next_id = QWEN_GRID + QWEN_TEXT
+    max_len = s_img + QWEN_TEXT + QWEN_NEW
+    print(f"15a qwen2-vl prompt: {s_img} patch embeddings (a {QWEN_GRID} x "
+          f"{QWEN_GRID} grid at t = 0, (h, w) ids from the grid) and "
+          f"{QWEN_TEXT} text tokens with ids from {QWEN_GRID}; decode "
+          f"positions (B, 1, 3) from {next_id}")
+    out = mm_generate(
+        "15a qwen2-vl", model, params, batch,
+        lambda t: torch.full((b, 1, 3), next_id + t, dtype=torch.int64,
+                             device=dev),
+        QWEN_NEW, lambda: model.init_state(b, max_len, torch.bfloat16, dev),
+        cfg.n_layers, mem_rate, bf16_rate, l2_bytes)
+    del params, model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"params": n_params, "layer_params": per_layer, **out}
+
+
+def seamless_phase(dev, mem_rate: float, bf16_rate: float,
+                   l2_bytes: int) -> dict:
+    """Phase 15b (see the module docstring)."""
+    import torch
+    from repro_torch.configs import get as get_config
+    from repro_torch.launch.shapes import AUDIO_DEC_FRACTION
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import registry
+    from repro_torch.models.params import flatten_tree
+    from repro_torch.nn import count_params
+    from repro_torch.train import step as STEP
+    cfg = get_config(MM_ARCHS[1])
+    model = registry.build(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        torch.bfloat16, device=dev)
+    n_params = count_params(params)
+    print(f"15b seamless: {cfg.name} at full width and depth "
+          f"({cfg.encoder_layers} encoder + {cfg.n_layers} decoder layers, "
+          f"d_model {cfg.d_model}, {cfg.n_heads} heads of "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff} ({cfg.act}, "
+          f"{cfg.norm}), vocab {cfg.vocab_size}): {n_params / 1e9:.3f} B "
+          f"parameters in bf16 ({2 * n_params / 1e9:.2f} GB); init peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    b, s_enc = SEAMLESS_BATCH, SEAMLESS_ENC
+    s_dec = max(128, s_enc // AUDIO_DEC_FRACTION)
+    batch = {"frame_embeds": (torch.randn((b, s_enc, cfg.d_model),
+                                          generator=gen, device=dev)
+                              * MM_EMBED_STD).to(torch.bfloat16),
+             "enc_positions": torch.arange(s_enc, device=dev).expand(b, -1),
+             "tokens": torch.randint(0, cfg.vocab_size, (b, s_dec),
+                                     generator=gen, device=dev),
+             "positions": torch.arange(s_dec, device=dev).expand(b, -1)}
+    max_len = s_dec + SEAMLESS_NEW
+    out = mm_generate(
+        "15b seamless", model, params, batch,
+        lambda t: torch.full((b, 1), s_dec + t, dtype=torch.int64,
+                             device=dev),
+        SEAMLESS_NEW, lambda: model.init_state(b, max_len, torch.bfloat16,
+                                               dev, enc_len=s_enc),
+        cfg.n_layers, mem_rate, bf16_rate, l2_bytes)
+
+    # the plain attention of the encoder (S_enc x S_enc) and of the
+    # cross-attention (S_dec x S_enc), split out of one prefill by CUDA
+    # events around each call
+    spans = {"encoder": [], "cross": []}
+    real = ED.attention_ref
+
+    def timed_ref(q, k, v, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        o = real(q, k, v, **kw)
+        ev[1].record()
+        spans["encoder" if q.shape[2] == k.shape[2] else "cross"].append(ev)
+        return o
+    ED.attention_ref = timed_ref
+    try:
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.prefill(params, batch)
+            torch.cuda.synchronize()
+            split_pre_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        ED.attention_ref = real
+    split = {k: sum(s.elapsed_time(e) for s, e in v)
+             for k, v in spans.items()}
+    print(f"15b seamless prefill {split_pre_ms:.2f} ms: plain encoder "
+          f"attention {split['encoder']:.3f} ms over {len(spans['encoder'])}"
+          f" calls ({b} x {cfg.n_heads} x {s_enc} x {s_enc}), plain "
+          f"cross-attention {split['cross']:.3f} ms over "
+          f"{len(spans['cross'])} calls ({s_dec} x {s_enc})")
+    if [len(v) for v in spans.values()] != [cfg.encoder_layers,
+                                            cfg.n_layers]:
+        raise AssertionError(f"seamless attention calls "
+                             f"{[len(v) for v in spans.values()]}")
+
+    # one bf16 forward and backward of the train step on the same batch
+    # (remat, chunked cross-entropy over the untied head)
+    tb = dict(batch, labels=torch.randint(0, cfg.vocab_size, (b, s_dec),
+                                          generator=gen, device=dev))
+    grad_fn = STEP.make_grad_fn(model, STEP.TrainConfig(
+        compute_dtype=torch.bfloat16, remat=True))
+    train_ms = []
+    for _ in range(2):      # the first call, then a steady one
+        grads = None
+        reset_lm_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grads, met = grad_fn(params.tree(), tb)
+        torch.cuda.synchronize()
+        train_ms.append((time.perf_counter() - t0) * 1e3)
+    train_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    train_launches = lm_launches()
+    bad = [k for k, g in flatten_tree(grads) if not bool(g.isfinite().all())]
+    loss = float(met["loss"])
+    gnorm = float(sum(g.float().square().sum()
+                      for _, g in flatten_tree(grads))) ** 0.5
+    print(f"15b seamless train step forward + backward {b} x {s_dec} "
+          f"(bf16, remat, chunked CE): first call {train_ms[0]:.1f} ms, "
+          f"second {train_ms[1]:.1f} ms; loss {loss:.4f}, gradient norm "
+          f"{gnorm:.4g}, peak {train_peak:.2f} GiB; launches of the second "
+          f"{train_launches}")
+    want = {"flash_attention": 2 * cfg.n_layers,
+            "flash_attention_wgmma": 2 * cfg.n_layers}
+    if not (bad == [] and math.isfinite(loss) and math.isfinite(gnorm)) \
+            or train_launches != want:
+        raise AssertionError(f"seamless train step: loss {loss}, "
+                             f"non-finite gradients {bad[:5]}, launches "
+                             f"{train_launches} (expected {want})")
+    del grads, tb, params, model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"params": n_params, **out, "split_prefill_ms": split_pre_ms,
+            "encoder_attention_ms": split["encoder"],
+            "cross_attention_ms": split["cross"],
+            "train_first_ms": train_ms[0], "train_ms": train_ms[1],
+            "train_loss": loss,
+            "train_peak_gib": train_peak, "train_launches": train_launches}
+
+
+def multimodal_phase(dev, mem_rate: float, bf16_rate: float) -> dict:
+    """Phase 15: qwen2-vl and the encoder-decoder (see the module
+    docstring).  Returns their numbers for the result lines."""
+    import torch
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 15 (qwen2-vl and the encoder-decoder): "
+          f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB still "
+          f"allocated from earlier phases")
+    l2_bytes = getattr(torch.cuda.get_device_properties(dev),
+                       "L2_cache_size", 50 * 2**20)
+    out = {"qwen2vl": qwen2vl_phase(dev, mem_rate, bf16_rate, l2_bytes)}
+    print(smi_line())
+    out["seamless"] = seamless_phase(dev, mem_rate, bf16_rate, l2_bytes)
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"phase 15 (qwen2-vl and the encoder-decoder): "
+          f"{out['wall_s']:.1f} s wall")
+    return out
+
+
+def lm_paths_build_report(libs, n_sm: int) -> None:
+    """Phase 2, for phases 14 and 15: HGMMA, registers and spills of the
+    flash_attention_wgmma instances that jamba (head_dim 128, G 4), gemma2
+    (head_dim 256, G 2), qwen2-vl (head_dim 128, G 8) and seamless's
+    decoder (head_dim 64, G 1) take, and registers and spills of the
     flash_decode instances of their decode steps."""
     import torch
     from repro_torch.configs import get as get_config
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_decode import flash_decode as FDK
+    from repro_torch.launch.shapes import AUDIO_DEC_FRACTION
     fa_regs = ptxas_kernels(build.build_log.get("flash_attention_wgmma", ""))
     fd_regs = ptxas_kernels(build.build_log.get("flash_decode", ""))
-    for arch, batch in ((RECURRENT_ARCHS[0], JAMBA_BATCH),
-                        (RECURRENT_ARCHS[2], GEMMA_BATCH)):
+    for arch, batch, max_len in (
+            (RECURRENT_ARCHS[0], JAMBA_BATCH, LM_MAX_LEN),
+            (RECURRENT_ARCHS[2], GEMMA_BATCH, LM_MAX_LEN),
+            (MM_ARCHS[0], QWEN_BATCH, QWEN_GRID ** 2 + QWEN_TEXT + QWEN_NEW),
+            (MM_ARCHS[1], SEAMLESS_BATCH, SEAMLESS_NEW + max(
+                128, SEAMLESS_ENC // AUDIO_DEC_FRACTION))):
         cfg = get_config(arch)
         hd, g = cfg.resolved_head_dim, cfg.n_heads // cfg.n_kv_heads
         name = f"flash_attention_wgmma_kernelILi{hd}E"
@@ -4024,7 +4388,7 @@ def recurrent_build_report(libs, n_sm: int) -> None:
         plan = FDK.plan_launch(
             torch.empty((batch, cfg.n_heads, hd), dtype=torch.bfloat16,
                         device="cuda"),
-            *[torch.empty((batch, LM_MAX_LEN, cfg.n_kv_heads, hd),
+            *[torch.empty((batch, max_len, cfg.n_kv_heads, hd),
                           dtype=torch.bfloat16, device="cuda")] * 2, n_sm)
         fd_name = fd_kernel_name(plan, True)
         fd = [v for k, v in fd_regs.items() if fd_name in k]
@@ -4146,7 +4510,7 @@ def main(argv) -> int:
         raise AssertionError(f"no HGMMA in {fa_name}'s SASS")
     print(f"SASS: {fa_name} holds {len(hgmma)} HGMMA instructions, e.g. "
           f"{hgmma[0].split(';')[0]}")
-    recurrent_build_report(
+    lm_paths_build_report(
         libs, torch.cuda.get_device_properties(0).multi_processor_count)
     # the sparse conv runs on the tensor cores in TF32: HMMA ... TF32 in each
     # instance (column tile width, fused or not) that the MinkUNet path takes
@@ -4502,8 +4866,12 @@ def main(argv) -> int:
     del sites, engine, baseline, results, base_preds, fod_logits
     print(smi_line())
     recurrent = recurrent_phase(dev, mem_rate, bf16_rate)
+    print(smi_line())
 
-    # 15. result lines
+    # 15. qwen2-vl (M-RoPE, patch embeddings) and the encoder-decoder
+    multimodal = multimodal_phase(dev, mem_rate, bf16_rate)
+
+    # 16. result lines
     src = "src/repro_torch/kernels/spconv/csrc/spconv_tc.cu"
     plans = {f"level {lv}": sorted(d["plans"]) for lv, d in
              sorted(by_level.items())}
@@ -4574,25 +4942,40 @@ def main(argv) -> int:
              "gemma2_prefill_4608": recurrent["gemma2"]["long_launches"],
              "xlstm_trainer_step": recurrent["xlstm"]["trainer"]["launches"],
              "gemma2_trainer_step": recurrent["gemma2"]["trainer"]["launches"]}
-    jam, gem = (recurrent[a]["instances"] for a in ("jamba", "gemma2"))
+    mm_paths = {"qwen2vl_generate": multimodal["qwen2vl"]["launches"],
+                "seamless_generate": multimodal["seamless"]["launches"],
+                "seamless_train_step":
+                    multimodal["seamless"]["train_launches"]}
+    jam, gem, qwen, seam = (
+        recurrent["jamba"]["instances"], recurrent["gemma2"]["instances"],
+        multimodal["qwen2vl"]["instances"],
+        multimodal["seamless"]["instances"])
     instances = {
         "flash_attention": {"jamba": jam["flash_attention"],
                             "gemma2": gem["flash_attention"],
                             "gemma2_local_4608":
-                                gem["flash_attention_local"]},
+                                gem["flash_attention_local"],
+                            "qwen2vl": qwen["flash_attention"],
+                            "seamless": seam["flash_attention"]},
         "flash_decode": {"jamba": jam["flash_decode"],
-                         "gemma2": gem["flash_decode"]},
+                         "gemma2": gem["flash_decode"],
+                         "qwen2vl": qwen["flash_decode"],
+                         "seamless": seam["flash_decode"]},
         "grouped_matmul": dict(zip(("jamba_w_in", "jamba_w_out"),
                                    jam["grouped_matmul"]))}
+
+    def by_path(kname, counts_of):
+        return {path: {k: v for k, v in counts.items()
+                       if k.removeprefix(kname).strip("_") in
+                       ("", "wgmma", "fma", "dx")}
+                for path, counts in counts_of.items()}
     for entry in kernels:
         kname = entry["name"]
         if kname in ("flash_attention", "grouped_matmul", "flash_decode",
                      "grouped_matmul_dw"):
-            entry["recurrent_launches"] = {
-                path: {k: v for k, v in counts.items()
-                       if k.removeprefix(kname).strip("_") in
-                       ("", "wgmma", "fma", "dx")}
-                for path, counts in paths.items()}
+            entry["recurrent_launches"] = by_path(kname, paths)
+        if kname in ("flash_attention", "flash_decode"):
+            entry["multimodal_launches"] = by_path(kname, mm_paths)
         if kname in instances:
             entry["instances"] = instances[kname]
         if entry["name"] in ("flash_attention", "grouped_matmul",
@@ -4609,7 +4992,12 @@ def main(argv) -> int:
                           "wall_s": recurrent["wall_s"],
                           **{arch: {k: v for k, v in recurrent[arch].items()
                                     if k != "instances"}
-                             for arch in ("jamba", "xlstm", "gemma2")}}}))
+                             for arch in ("jamba", "xlstm", "gemma2")}},
+                      "multimodal": {
+                          "wall_s": multimodal["wall_s"],
+                          **{arch: {k: v for k, v in multimodal[arch].items()
+                                    if k != "instances"}
+                             for arch in ("qwen2vl", "seamless")}}}))
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
 """ArchConfig dataclass + registry: a copy of the reference's
-`configs/base.py` over the configs the port has ported so far."""
+`configs/base.py` over all of its configs."""
 
 from __future__ import annotations
 
@@ -10,10 +10,10 @@ from typing import Optional, Tuple
 
 _REGISTRY: dict = {}
 
-_ARCH_MODULES = [  # ported
+_ARCH_MODULES = [
     "gemma2_2b", "granite_34b", "qwen15_4b", "qwen15_32b", "jamba_52b",
-    "xlstm_125m", "granite_moe_1b", "mixtral_8x7b", "minkunet",
-    "mini_minkunet",
+    "xlstm_125m", "seamless_m4t_medium", "granite_moe_1b", "mixtral_8x7b",
+    "qwen2_vl_72b", "minkunet", "mini_minkunet",
 ]
 
 

@@ -1,5 +1,6 @@
-"""Shared LM layers: RoPE, RMSNorm, GQA attention (train/prefill/decode),
-gated MLP — the port of the reference's `models/layers.py`.
+"""Shared LM layers: RoPE / M-RoPE, RMSNorm / LayerNorm, GQA attention
+(train/prefill/decode), gated or plain MLP — the port of the reference's
+`models/layers.py`.
 
 Prefill (and train) attention runs through `kernels.flash_attention.ops`
 and each decode step's attention through `kernels.flash_decode.ops`, where
@@ -27,10 +28,14 @@ from repro_torch.kernels.flash_decode import ops as fd_ops
 # ---------------------------------------------------------------------------
 
 def norm_init(cfg: ArchConfig, d: int, device=None, dtype=torch.float32):
+    if cfg.norm == "layernorm":
+        return nn.layernorm_init(d, device, dtype)
     return nn.rmsnorm_init(d, device, dtype)
 
 
 def norm_apply(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
+    if cfg.norm == "layernorm":
+        return nn.layernorm(p, x)
     return nn.rmsnorm(p, x)
 
 
@@ -42,29 +47,43 @@ def act_fn(name: str):
 
 
 # ---------------------------------------------------------------------------
-# RoPE
+# RoPE / M-RoPE
 # ---------------------------------------------------------------------------
 
-def _rope_angles(positions: torch.Tensor, head_dim: int,
-                 theta: float) -> torch.Tensor:
-    """positions (B, S) -> angles (B, S, head_dim//2).
+def _rope_angles(positions: torch.Tensor, head_dim: int, theta: float,
+                 mrope_sections=None) -> torch.Tensor:
+    """positions (B, S) or (B, S, 3) -> angles (B, S, head_dim//2).
 
     The inverse frequencies are theta ** -(arange(half) / half * 2), as in
-    the reference.
+    the reference.  M-RoPE (qwen2-vl): with (B, S, 3) positions the
+    spectrum is cut into `mrope_sections`, each driven by one of the
+    (t, h, w) ids.  (B, S) positions take plain RoPE whatever the config,
+    as in the reference.
     """
     half = head_dim // 2
     expo = torch.arange(0, half, dtype=torch.float32,
                         device=positions.device) / half * 2.0 + 0.0
     inv_freq = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
                                             device=positions.device), expo)
-    return positions[..., None].to(torch.float32) * inv_freq
+    if positions.dim() == 2:
+        return positions[..., None].to(torch.float32) * inv_freq
+    if mrope_sections is None or sum(mrope_sections) != half:
+        raise ValueError(f"(B, S, 3) positions need mrope_sections summing "
+                         f"to head_dim // 2 = {half}, got {mrope_sections}")
+    parts, start = [], 0
+    for axis, sec in enumerate(mrope_sections):
+        p = positions[..., axis].to(torch.float32)
+        parts.append(p[..., None] * inv_freq[start:start + sec])
+        start += sec
+    return torch.cat(parts, dim=-1)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """x (B, S, H, head_dim); split-halves rotation in float32, cast back."""
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               mrope_sections=None) -> torch.Tensor:
+    """x (B, S, H, head_dim); split-halves rotation in float32, cast back.
+    positions (B, S), or (B, S, 3) with `mrope_sections`."""
     half = x.shape[-1] // 2
-    ang = _rope_angles(positions, x.shape[-1], theta)
+    ang = _rope_angles(positions, x.shape[-1], theta, mrope_sections)
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     xf1 = x[..., :half].to(torch.float32)
@@ -130,8 +149,9 @@ def attention_apply(p, cfg: ArchConfig, x: torch.Tensor,
     q = nn.dense(p["wq"], x).reshape(b, s, h, hd)
     k = nn.dense(p["wk"], x).reshape(b, s, hkv, hd)
     v = nn.dense(p["wv"], x).reshape(b, s, hkv, hd)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    mrope = cfg.mrope_sections if cfg.mrope else None
+    q = apply_rope(q, positions, cfg.rope_theta, mrope)
+    k = apply_rope(k, positions, cfg.rope_theta, mrope)
 
     new_cache = None
     if mode == "decode":

@@ -17,9 +17,9 @@ counterpart of the reference's donated buffers).  Sub-layers are attention
 (dense or MoE FFN, QKV bias, sliding or local/global windows, softcaps),
 mamba (`models/mamba.py`, the jamba hybrid) and mLSTM / sLSTM
 (`models/xlstm.py`); gemma2's sandwich norms, embedding scale, tied head
-and final softcap are ported too.  `check_ported` raises
-NotImplementedError for the reference's M-RoPE and layernorm, which no
-ported config uses yet.
+and final softcap, qwen2-vl's M-RoPE (positions (B, S, 3)) and patch
+embeddings (`embeds=`, prepended to the token rows) and layernorm
+(`cfg.norm`) are ported too.
 
 `lm_init(generator, cfg, dtype, device=None)` draws the reference's shapes
 and distributions from a `torch.Generator` (on the generator's device) and
@@ -54,25 +54,8 @@ class SubLayerSpec(NamedTuple):
     window: Optional[int]   # per-layer attention window
 
 
-# config features the reference's LM code has and the port does not run yet;
-# each comes back with the slice that registers a config needing it
-_UNPORTED_FLAGS = ("mrope",)
-
-
-def check_ported(cfg: ArchConfig) -> None:
-    """Raise NotImplementedError for a config the port cannot run."""
-    found = [f for f in _UNPORTED_FLAGS if getattr(cfg, f)]
-    if cfg.norm != "rmsnorm":
-        found.append(f"norm={cfg.norm!r}")
-    if found:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(found)} not ported yet (ROADMAP Queue A "
-            "item 5)")
-
-
 def body_layout(cfg: ArchConfig):
     """Static description of one body (cfg.block_pattern sub-layers)."""
-    check_ported(cfg)
     subs = []
     for i in range(cfg.block_pattern):
         if cfg.ssm_type == "xlstm":
@@ -150,21 +133,20 @@ def body_init(gen, cfg: ArchConfig, dtype=torch.float32):
             for i, s in enumerate(body_layout(cfg))}
 
 
-def _stacked_bodies(gen, cfg: ArchConfig, dtype):
-    """The bodies' leaves stacked on a leading axis: drawn body after body,
-    each body written into the stacked leaves once it is drawn (one body
-    is stacked as a view)."""
-    n_bodies = cfg.n_layers // cfg.block_pattern
+def stack_drawn(draw, n: int):
+    """`n` trees from `draw()` with their leaves stacked on a leading axis:
+    drawn one after another, each written into the stacked leaves once it
+    is drawn (one tree is stacked as a view)."""
     stacked = None
-    for i in range(n_bodies):
-        body = body_init(gen, cfg, dtype)
-        if n_bodies == 1:
-            return tree_map(lambda x: x.unsqueeze(0), body)
+    for i in range(n):
+        one = draw()
+        if n == 1:
+            return tree_map(lambda x: x.unsqueeze(0), one)
         if stacked is None:
             stacked = tree_map(
-                lambda x: x.new_empty((n_bodies,) + tuple(x.shape)), body)
-        tree_map(lambda dst, src: dst[i].copy_(src), stacked, body)
-        del body
+                lambda x: x.new_empty((n,) + tuple(x.shape)), one)
+        tree_map(lambda dst, src: dst[i].copy_(src), stacked, one)
+        del one
     return stacked
 
 
@@ -177,7 +159,8 @@ def lm_init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32,
     dev = resolve_device(device)
     params = {
         "embed": nn.embedding_init(gen, cfg.vocab_size, cfg.d_model, dtype),
-        "layers": _stacked_bodies(gen, cfg, dtype),
+        "layers": stack_drawn(lambda: body_init(gen, cfg, dtype),
+                              cfg.n_layers // cfg.block_pattern),
         "final_norm": L.norm_init(cfg, cfg.d_model, gen.device, dtype),
     }
     if not cfg.tie_embeddings:
@@ -273,12 +256,17 @@ def body_apply(p, cfg: ArchConfig, x, positions, *, mode: str, states=None,
     return x, new_states, aux
 
 
-def embed_tokens(params, cfg: ArchConfig, tokens):
+def embed_tokens(params, cfg: ArchConfig, tokens, embeds=None):
+    """Token embedding, scaled under `cfg.embed_scale`; a modality
+    frontend's embeddings (B, S_img, D) (the vlm stub), cast to the
+    tokens' dtype, are prepended along the sequence."""
     x = nn.embed(params["embed"], tokens)
     if cfg.embed_scale:
         # sqrt(d_model) in float32, rounded to the activation dtype first
         scale = torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32)
         x = x * float(scale.to(x.dtype))
+    if embeds is not None:
+        x = torch.cat([embeds.to(x.dtype), x], dim=1)
     return x
 
 
@@ -304,17 +292,17 @@ def _store(dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
 
 def lm_apply(params, cfg: ArchConfig, tokens, positions, *,
              mode: str = "train", states=None, cache_pos=None,
-             moe_impl: str = "sorted", return_hidden: bool = False,
-             remat: bool = False):
-    """tokens (B, S); positions (B, S[, 3]).  Returns (logits_or_hidden,
-    new_states, aux).  In decode mode `states` is updated in place and
-    returned.  `return_hidden` skips the final norm and head; `remat`
-    (train mode) recomputes each body in the backward pass."""
+             moe_impl: str = "sorted", embeds=None,
+             return_hidden: bool = False, remat: bool = False):
+    """tokens (B, S); positions (B, S[, 3]) over the embeds' rows and the
+    tokens'.  Returns (logits_or_hidden, new_states, aux), over S_img + S
+    rows with `embeds` (B, S_img, D).  In decode mode `states` is updated
+    in place and returned.  `return_hidden` skips the final norm and head;
+    `remat` (train mode) recomputes each body in the backward pass."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(mode)
-    check_ported(cfg)
     params = param_tree(params)
-    x = embed_tokens(params, cfg, tokens)
+    x = embed_tokens(params, cfg, tokens, embeds)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     n_bodies = cfg.n_layers // cfg.block_pattern
 

@@ -1,5 +1,4 @@
-"""Uniform model API — the port of the reference's `models/registry.py`,
-for the LM family (the encoder-decoder `audio` family is not ported).
+"""Uniform model API — the port of the reference's `models/registry.py`.
 
 build(cfg) -> Model with:
   init(generator, dtype, device=None)       -> params (a ParamTree)
@@ -7,17 +6,24 @@ build(cfg) -> Model with:
   prefill(params, batch)                    -> (logits, states, aux)
   decode(params, batch, states)             -> (logits, states, aux)
   init_state(batch_size, max_len, dtype, device=None) -> decode-state tree
+      (the audio family also takes enc_len=, the cross cache's length)
   train_hidden(params, batch, remat=False) -> (final-normed hidden, aux)
   head_info(params)                         -> (head_w, transpose, softcap)
 
-batch dict keys: tokens (B,S) positions (B,S); decode: tokens (B,1),
-positions (B,1), cache_pos (B,).  `params` may be a ParamTree or its
-nested dict.  Training (`train/step.py`) goes through `train_logits`, or
-`train_hidden` + `head_info` for the chunked cross-entropy; `remat=True`
-recomputes each body in the backward pass.  The reference's sharding
-arguments (`shard`, `mesh`; ROADMAP Queue A item 6), its per-call
-`moe_impl` overrides and its `patch_embeds` input are not ported: the
-port runs on one card.
+batch dict keys by family:
+  lm:    tokens (B,S) positions (B,S) [labels]
+  vlm:   + patch_embeds (B,S_img,D), prepended to the token rows;
+         positions (B,S_img+S,3) (M-RoPE), or (B,S) (plain RoPE)
+  audio: frame_embeds (B,S_enc,D) enc_positions (B,S_enc) tokens (B,S_dec)
+         positions (B,S_dec)
+decode: tokens (B,1), positions (B,1[,3]), cache_pos (B,).
+
+`params` may be a ParamTree or its nested dict.  Training
+(`train/step.py`) goes through `train_logits`, or `train_hidden` +
+`head_info` for the chunked cross-entropy; `remat=True` recomputes each
+body (each decoder layer) in the backward pass.  The reference's sharding
+arguments (`shard`, `mesh`; ROADMAP Queue A item 6) and its per-call
+`moe_impl` overrides are not ported: the port runs on one card.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import encdec as ED
 from repro_torch.models import layers as L
 from repro_torch.models import lm as LM
 
@@ -54,9 +61,7 @@ def default_moe_impl(cfg: ArchConfig, mode: str) -> str:
 
 def build(cfg: ArchConfig) -> Model:
     if cfg.family == "audio":
-        raise NotImplementedError(
-            "the encoder-decoder (audio) family is not ported yet: ROADMAP "
-            "Queue A item 5")
+        return _build_encdec(cfg)
     return _build_lm(cfg)
 
 
@@ -68,14 +73,15 @@ def _build_lm(cfg: ArchConfig) -> Model:
         logits, _, aux = LM.lm_apply(
             params, cfg, batch["tokens"], batch["positions"], mode="train",
             moe_impl=default_moe_impl(cfg, "train"),
-            remat=remat)
+            embeds=batch.get("patch_embeds"), remat=remat)
         return logits, aux
 
     def train_hidden(params, batch, remat: bool = False):
         x, _, aux = LM.lm_apply(
             params, cfg, batch["tokens"], batch["positions"], mode="train",
             moe_impl=default_moe_impl(cfg, "train"),
-            remat=remat, return_hidden=True)
+            embeds=batch.get("patch_embeds"), remat=remat,
+            return_hidden=True)
         return L.norm_apply(cfg, LM.param_tree(params)["final_norm"], x), aux
 
     def head_info(params):
@@ -87,7 +93,8 @@ def _build_lm(cfg: ArchConfig) -> Model:
     def prefill(params, batch):
         return LM.lm_apply(
             params, cfg, batch["tokens"], batch["positions"],
-            mode="prefill", moe_impl=default_moe_impl(cfg, "prefill"))
+            mode="prefill", moe_impl=default_moe_impl(cfg, "prefill"),
+            embeds=batch.get("patch_embeds"))
 
     def decode(params, batch, states):
         return LM.lm_apply(
@@ -97,6 +104,46 @@ def _build_lm(cfg: ArchConfig) -> Model:
 
     def init_state(batch_size, max_len, dtype=torch.bfloat16, device=None):
         return LM.init_lm_state(cfg, batch_size, max_len, dtype, device)
+
+    return Model(cfg, init, train_logits, prefill, decode, init_state,
+                 train_hidden, head_info)
+
+
+def _build_encdec(cfg: ArchConfig) -> Model:
+    def init(gen: torch.Generator, dtype=torch.float32, device=None):
+        return ED.encdec_init(gen, cfg, dtype, device)
+
+    def train_logits(params, batch, remat: bool = False):
+        logits, _, aux = ED.encdec_apply(
+            params, cfg, batch["frame_embeds"], batch["enc_positions"],
+            batch["tokens"], batch["positions"], mode="train", remat=remat)
+        return logits, aux
+
+    def train_hidden(params, batch, remat: bool = False):
+        # encdec_apply's hidden states are final-normed already
+        x, _, aux = ED.encdec_apply(
+            params, cfg, batch["frame_embeds"], batch["enc_positions"],
+            batch["tokens"], batch["positions"], mode="train", remat=remat,
+            return_hidden=True)
+        return x, aux
+
+    def head_info(params):
+        return LM.param_tree(params)["lm_head"]["w"], False, None
+
+    def prefill(params, batch):
+        return ED.encdec_apply(
+            params, cfg, batch["frame_embeds"], batch["enc_positions"],
+            batch["tokens"], batch["positions"], mode="prefill")
+
+    def decode(params, batch, states):
+        return ED.encdec_apply(
+            params, cfg, None, None, batch["tokens"], batch["positions"],
+            mode="decode", states=states, cache_pos=batch["cache_pos"])
+
+    def init_state(batch_size, max_len, dtype=torch.bfloat16, device=None,
+                   enc_len=None):
+        return ED.init_encdec_state(cfg, batch_size, max_len, dtype, device,
+                                    enc_len)
 
     return Model(cfg, init, train_logits, prefill, decode, init_state,
                  train_hidden, head_info)

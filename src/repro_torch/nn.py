@@ -76,9 +76,9 @@ def layernorm(p, x: torch.Tensor, eps: float = LN_EPS) -> torch.Tensor:
     return (y * p["scale"] + p["bias"]).to(x.dtype)
 
 
-def layernorm_init(d: int, device=None):
-    return {"scale": torch.ones(d, device=device),
-            "bias": torch.zeros(d, device=device)}
+def layernorm_init(d: int, device=None, dtype=torch.float32):
+    return {"scale": torch.ones(d, dtype=dtype, device=device),
+            "bias": torch.zeros(d, dtype=dtype, device=device)}
 
 
 def rmsnorm_init(d: int, device=None, dtype=torch.float32):

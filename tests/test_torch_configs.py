@@ -1,9 +1,11 @@
 """Port parity of the LM configs registered with the trainer: the four
 attention-only ones, qwen1.5-4b and qwen1.5-32b (QKV bias, MHA),
 granite-34b (MQA, GELU, a plain MLP) and mixtral-8x7b (MoE top-2, a
-sliding window), and jamba-v0.1-52b, xlstm-125m and gemma2-2b.
+sliding window), jamba-v0.1-52b, xlstm-125m and gemma2-2b, and
+qwen2-vl-72b and seamless-m4t-medium.
 
-Each config equals the reference's field for field, full and reduced.  For
+Each config equals the reference's field for field, full and reduced, and
+the port registers every config of the reference.  For
 the four attention-only configs, at
 the reduced size (4 layers, d_model 64, vocab 256) with the port's seeded
 init in both packages (`reference_tree`): the float32 forward logits
@@ -38,9 +40,11 @@ from tests.test_torch_serve_faults import one_torch_thread  # noqa: F401
 from tests.torch_parity import jit, reference_tree
 
 ARCHS = ("qwen1.5-4b", "qwen1.5-32b", "granite-34b", "mixtral-8x7b",
-         "jamba-v0.1-52b", "xlstm-125m", "gemma2-2b")
-# the recurrent and hybrid LMs and gemma2 have files of their own
-# (tests/test_torch_{mamba,xlstm,gemma2}.py) with their forward and step
+         "jamba-v0.1-52b", "xlstm-125m", "gemma2-2b", "qwen2-vl-72b",
+         "seamless-m4t-medium")
+# the recurrent and hybrid LMs, gemma2, qwen2-vl and the encoder-decoder
+# have files of their own (tests/test_torch_{mamba,xlstm,gemma2,qwen2vl,
+# encdec}.py) with their forward and step
 ATTENTION_ARCHS = ARCHS[:4]
 B, S = 2, 16
 OPT_CFG = dict(lr=1e-3, warmup_steps=1, total_steps=10, eps=1e-4)
@@ -55,10 +59,16 @@ def test_config_fields_equal_reference(name):
 
 
 def test_unported_configs_stay_unregistered():
+    """Every config of the reference is registered in the port (qwen2-vl-72b
+    and seamless-m4t-medium the last); a name neither has still raises."""
+    assert TC.list_archs() == RC.list_archs()
+    assert len(TC.list_archs()) == 12
     for name in ("qwen2-vl-72b", "seamless-m4t-medium"):
-        assert name in RC.list_archs()
-        with pytest.raises(KeyError, match="unknown arch"):
-            TC.get(name)
+        assert TC.get(name).name == name
+    with pytest.raises(KeyError, match="unknown arch 'no-such-arch'"):
+        TC.get("no-such-arch")
+    with pytest.raises(KeyError, match="unknown arch"):
+        RC.get("no-such-arch")
 
 
 def _models(name):

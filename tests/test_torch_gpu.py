@@ -1154,3 +1154,98 @@ def test_recurrent_lm_init_and_state_from_a_card_generator_are_on_the_card():
         assert {x.device.type for x in leaves.values()} == {"cuda"}, arch
         assert {x.dtype for x in leaves.values()} <= {torch.bfloat16,
                                                       torch.float32}
+
+
+@pytest.mark.gpu
+def test_multimodal_lm_init_and_state_from_a_card_generator_are_on_the_card():
+    """Reduced qwen2-vl (M-RoPE, patch embeddings) and seamless (the
+    encoder-decoder, layernorm): every parameter drawn from a card
+    generator and every decode-state leaf lies on the card in bf16; a
+    prefill and a decode step run there."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs import get
+    from repro_torch.models import registry
+    from repro_torch.models.params import flatten_tree, tree_map
+    for arch in ("qwen2-vl-72b", "seamless-m4t-medium"):
+        cfg = get(arch, reduced=True)
+        model = registry.build(cfg)
+        module = model.init(torch.Generator(device="cuda").manual_seed(0),
+                            torch.bfloat16)
+        assert {p.device.type for p in module.parameters()} == {"cuda"}
+        assert {p.dtype for p in module.parameters()} == {torch.bfloat16}
+        kw = {"enc_len": 12} if cfg.family == "audio" else {}
+        state = model.init_state(2, 32, torch.bfloat16, **kw)
+        leaves = [x for _, x in flatten_tree(state)]
+        assert {x.device.type for x in leaves} == {"cuda"}, arch
+        assert {x.dtype for x in leaves} == {torch.bfloat16}, arch
+        tok = torch.zeros((2, 8), dtype=torch.int64, device="cuda")
+        if cfg.family == "audio":
+            batch = {"frame_embeds": torch.randn(2, 12, cfg.d_model,
+                                                 device="cuda"),
+                     "enc_positions": torch.arange(12, device="cuda")
+                     .expand(2, 12),
+                     "tokens": tok,
+                     "positions": torch.arange(8, device="cuda").expand(2, 8)}
+            step_pos = torch.full((2, 1), 8, device="cuda")
+        else:
+            batch = {"tokens": tok,
+                     "patch_embeds": torch.randn(2, 4, cfg.d_model,
+                                                 device="cuda"),
+                     "positions": torch.arange(12, device="cuda")[:, None]
+                     .expand(2, 12, 3)}
+            step_pos = torch.full((2, 1, 3), 12, device="cuda")
+        with torch.no_grad():
+            logits, pre, _ = model.prefill(module, batch)
+            n = logits.shape[1]
+
+            def place(dst, src):
+                dst[tuple(slice(0, m) for m in src.shape)].copy_(src)
+                return dst
+            tree_map(place, state, pre)
+            out, _, _ = model.decode(module, {
+                "tokens": tok[:, :1], "positions": step_pos,
+                "cache_pos": torch.full((2,), n, device="cuda")}, state)
+        assert out.shape == (2, 1, cfg.vocab_size) and out.is_cuda
+        assert bool(out.float().isfinite().all()), arch
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd,g,hkv,sq,b", [
+    (128, 8, 8, 1024, 2),     # qwen2-vl's prefill: 64 query heads a layer
+    (64, 1, 16, 256, 4)])     # seamless's decoder self-attention
+def test_multimodal_attention_instances_match_plain_versions(hd, g, hkv, sq,
+                                                             b):
+    """The flash_attention_wgmma instance (causal, bf16) and the
+    flash_decode instance of each new path's decode step, at the paths'
+    head layout, against their plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.flash_decode import flash_decode as FD
+    from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+    rng = np.random.default_rng(hd + g)
+    q = _cuda(rng, (b, hkv * g, sq, hd), "bfloat16")
+    k = _cuda(rng, (b, hkv, sq, hd), "bfloat16")
+    v = _cuda(rng, (b, hkv, sq, hd), "bfloat16")
+    assert FA.variant(q.dtype, hd, g, [t.data_ptr() % 16 for t in
+                                       (q, k, v)]) == "wgmma"
+    before = FA.LAUNCHES["flash_attention_wgmma"]
+    got = FA.flash_attention_cuda(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), attention_ref(q, k, v).float(),
+                               **_tol("bfloat16"))
+    assert FA.LAUNCHES["flash_attention_wgmma"] == before + 1
+    s = sq + 16
+    qd = _cuda(rng, (b, hkv * g, hd), "bfloat16")
+    kc = _cuda(rng, (b, s, hkv, hd), "bfloat16")
+    vc = _cuda(rng, (b, s, hkv, hd), "bfloat16")
+    lengths = torch.full((b,), sq + 5, dtype=torch.int32, device="cuda")
+    before = FD.LAUNCHES["flash_decode"]
+    got = FD.flash_decode_cuda(qd, kc, vc, lengths)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        got.float(), flash_decode_ref(qd, kc, vc, lengths).float(),
+        **_tol("bfloat16"))
+    assert FD.LAUNCHES["flash_decode"] == before + 1

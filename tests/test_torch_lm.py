@@ -248,37 +248,89 @@ def test_device_policy(granite, monkeypatch):
 
 
 def test_unported_paths_raise():
+    """What stays unported raises (the expert-parallel MoE, Queue A item 6);
+    the audio family builds the encoder-decoder; M-RoPE sections that do
+    not cover head_dim / 2 raise on (B, S, 3) positions, where the
+    reference asserts, and (B, S) positions take plain RoPE."""
+    from repro.models import layers as RL
+    from repro_torch.models import encdec as TED
     from repro_torch.models import moe as TM
     with pytest.raises(NotImplementedError, match="Queue A item 6"):
         TM.moe_apply(None, None, None, impl="ep")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TR.build(tget(ARCH).replace(family="audio"))
-    cfg = tget(ARCH, reduced=True).replace(mrope=True)
-    with pytest.raises(NotImplementedError, match="mrope"):
-        TR.build(cfg).init(torch.Generator(), device="cpu")
+    audio = TR.build(tget("seamless-m4t-medium", reduced=True))
+    assert audio.init.__module__ == TR.__name__ and \
+        audio.init.__qualname__.startswith("_build_encdec")
+    params = audio.init(torch.Generator().manual_seed(0), device="cpu")
+    assert {k.split(".")[0] for k in params.state_dict()} == {
+        "embed", "enc_layers", "enc_norm", "dec_layers", "final_norm",
+        "lm_head"}
+    assert isinstance(audio.init_state(1, 8, torch.float32, device="cpu"),
+                      TED.DecLayerState)
+    cfg = tget(ARCH, reduced=True).replace(mrope=True,
+                                           mrope_sections=(2, 3, 4))
+    model = TR.build(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    tokens = torch.zeros((1, 2), dtype=torch.int64)
+    with pytest.raises(ValueError, match="mrope_sections"):
+        model.prefill(params, {"tokens": tokens,
+                               "positions": torch.zeros((1, 2, 3),
+                                                        dtype=torch.int64)})
+    with pytest.raises(AssertionError):
+        RL._rope_angles(jnp.zeros((1, 2, 3)), 16, 1e4, (2, 3, 4))
+    logits, _, _ = model.prefill(params, {
+        "tokens": tokens, "positions": torch.arange(2).expand(1, 2)})
+    assert logits.shape == (1, 2, cfg.vocab_size)
 
 
 @pytest.mark.parametrize("change,named", [
     (dict(mrope=True), "mrope"),
     (dict(norm="layernorm"), "layernorm")])
 def test_unported_config_features_raise(change, named):
-    """A config feature the port does not run raises at init, at state
-    init and at apply, instead of running as if it were absent."""
-    from repro_torch.models import lm as TLM
+    """The two config features this suite once held unported now run: each
+    alone on reduced granite (M-RoPE with sections (2, 3, 3) of head_dim
+    16 and distinct (t, h, w) ids; layernorm leaves with a scale and a
+    bias) against the reference at init (the same parameter tree), state
+    init (equal states) and apply (float32 train logits within 1e-4 x
+    max|reference|, the reference's routing imposed; the prefill's logits
+    equal to the train logits)."""
+    from repro_torch.data.synthetic import token_batch
+    from tests.test_torch_configs import _impose, _recorded_routes
+    from tests.torch_parity import jit, reference_tree
+    if named == "mrope":
+        change = dict(change, mrope_sections=(2, 3, 3))
     cfg = tget(ARCH, reduced=True).replace(**change)
-    model = TR.build(cfg)
-    with pytest.raises(NotImplementedError, match=named):
-        model.init(torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError, match=named):
-        model.init_state(1, 8, torch.float32, device="cpu")
-    params = TR.build(tget(ARCH, reduced=True)).init(torch.Generator(),
-                                                     device="cpu")
-    batch = {"tokens": torch.zeros((1, 2), dtype=torch.int64),
-             "positions": torch.arange(2).expand(1, 2)}
-    with pytest.raises(NotImplementedError, match=named):
-        model.prefill(params, batch)
-    with pytest.raises(NotImplementedError, match=named):
-        TLM.lm_apply(params, cfg, batch["tokens"], batch["positions"])
+    rmodel = RR.build(RC.get(ARCH, reduced=True).replace(**change))
+    tmodel = TR.build(cfg)
+    module = tmodel.init(torch.Generator().manual_seed(0), device="cpu")
+    rparams = reference_tree(module, rmodel.init, jax.random.key(0))
+    load_jax_params(module, jax.tree_util.tree_map(np.asarray, rparams))
+    norm_keys = {k.rsplit(".", 1)[1] for k in module.state_dict()
+                 if k.startswith("final_norm.")}
+    assert norm_keys == ({"scale", "bias"} if named == "layernorm"
+                         else {"scale"})
+    want_state = jax.tree_util.tree_leaves(rmodel.init_state(1, 8,
+                                                             jnp.float32))
+    got_state = [x for _, x in flatten_tree(tmodel.init_state(
+        1, 8, torch.float32, device="cpu"))]
+    assert len(got_state) == len(want_state)
+    for got_leaf, want_leaf in zip(got_state, want_state):
+        np.testing.assert_array_equal(got_leaf.numpy(), np.asarray(want_leaf))
+    batch = token_batch(3, 0, B, S, cfg.vocab_size)
+    if named == "mrope":
+        batch["positions"] = np.random.default_rng(5).integers(
+            0, 3 * S, (B, S, 3)).astype(np.int32)
+    rb = {k: jnp.asarray(v) for k, v in batch.items()}
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    with pytest.MonkeyPatch.context() as mp:
+        want, routes = _recorded_routes(rmodel, rparams, rb, mp)
+        _impose(routes, mp)
+        with torch.no_grad():
+            got, _ = tmodel.train_logits(module, tb)
+            pre, _, _ = tmodel.prefill(module, tb)
+    want = np.asarray(want)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-4 * float(np.abs(want).max()))
+    torch.testing.assert_close(pre, got, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("change,named", [
