@@ -357,8 +357,32 @@ Phases (any failure exits non-zero; none catches its own):
      flash_decode call, recorded in the plain run, are held alone against
      their plain versions and timed beside SDPA with the bound, as in
      phase 14.  The phase's wall is printed.
-  16. a {"v1": ..., "train": {..., "trainer": ...}, "recurrent": ...,
-     "multimodal": ...} line,
+  16. sharding: NCCL at world 1 (`file://` rendezvous under build/),
+     a 1 x 1 ("data", "model") and a 1 x 1 x 1 ("pod", "data", "model")
+     mesh on the card.  16a: one train step of full-width granite
+     (float32 weights, bf16 compute, remat, AdamW, 4 x 512) with
+     `ShardingConfig(mesh, fsdp=True, seq_parallel=True)` and one without,
+     from the same seeded weights and batch, one after the other (the
+     first's parameters wait on the host); each takes a second step for a
+     steady time.  Gates: loss within 1e-4 relative, each updated leaf
+     within 5e-2 of its max, launches of each equal to phase 12's (48
+     flash_attention, 216 grouped_matmul of them 72 dX, 72 dW, all
+     wgmma).  16b: `ServeEngine.generate` 8 x 512 + 32 with `sc` and
+     without: launches equal (24 flash_attention and 72 grouped_matmul a
+     prefill, 24 flash_decode a step), greedy tokens compared, both
+     engines teacher-forced on the unsharded tokens within 5e-2.  16c:
+     `moe_apply_ep` at ep = 1 on granite's layer (4 x 512 tokens) against
+     `moe_apply_sorted` within 1e-4 (f32) / 5e-2 (bf16), no kernel
+     launched by EP (plain matmuls).  16d: a one-stage `pipelined_forward`
+     against the plain loop, forward and gradient within 1e-5.  16e:
+     `compressed_psum` at pod = 1: payload, scales and mean equal to a
+     CPU run of the same input (a difference is counted and named).  16f:
+     `elastic.resume_or_init` on the 1 x 1 mesh from a checkpoint saved
+     without a mesh (reduced granite): params bit-equal, start step 7.
+     16g: `make_scene_mesh()` is None on one card; a scheduler's
+     `n_devices` is 1 and `max_batch` unrounded.
+  17. a {"v1": ..., "train": {..., "trainer": ...}, "recurrent": ...,
+     "multimodal": ..., "sharding": ...} line,
      a {"kernels": [...]} line (seven kernels; flash_attention,
      grouped_matmul and grouped_matmul_dw carry phase 13's counts as
      `trainer_launches`, and the four LM kernels phase 14's counts by path
@@ -476,6 +500,11 @@ MM_TOL = LM_BF16_PATH_TOL    # bf16 logits, kernel path against plain path
 MM_EMBED_STD = 0.02          # the stub frontends' embeddings: the token
                              # table's scale
 QWEN_LAYERS = 8              # 15a: 8 of qwen2-vl's 80 layers
+SHARD_EP_CAPACITY = 8.0       # 16c: no assignment dropped by either path
+SHARD_EP_TOKENS = (4, 512)    # 16c: the MoE input (B, S) at granite's width
+SHARD_PIPE = (4, 8, 512, 1024)  # 16d: bodies, then x (B, S, D)
+SHARD_TRAIN_TOL = 5e-2        # 16a: each updated leaf, of its max (bf16)
+SHARD_LOSS_TOL = 1e-4         # 16a: the loss, relative
 QWEN_BATCH, QWEN_GRID, QWEN_TEXT, QWEN_NEW = 2, 16, 768, 16
 SEAMLESS_BATCH, SEAMLESS_ENC, SEAMLESS_NEW = 4, 1024, 32   # 15b
 
@@ -1805,13 +1834,17 @@ def teacher_forced(engine, prompts, tokens, steps=None):
     (B, N) (the first `steps` of them): the logits of the prefill
     (B, S, V) and of each step (B, V), in float32."""
     import torch
+    from repro_torch.distributed import sharding as SH
     b, s = prompts.shape
     dev = engine.device
+    sc = getattr(engine, "sc", None)
+    kw = {} if sc is None else {"shard": SH.make_shard_fn(sc),
+                                "mesh": sc.mesh}
     batch = {"tokens": torch.as_tensor(prompts, dtype=torch.int64, device=dev),
              "positions": torch.arange(s, device=dev).expand(b, s)}
     with torch.no_grad():
-        logits, pre, _ = engine.model.prefill(engine.params, batch)
-        out = [logits.float()]
+        logits, pre, _ = engine.model.prefill(engine.params, batch, **kw)
+        out = [SH.full(logits).float()]
         states = engine.place_states(pre, b)
         del pre, logits
         n = tokens.shape[1] if steps is None else steps
@@ -1823,8 +1856,9 @@ def teacher_forced(engine, prompts, tokens, steps=None):
                                           device=dev),
                   "cache_pos": torch.full((b,), pos, dtype=torch.int64,
                                           device=dev)}
-            logits, states, _ = engine.model.decode(engine.params, db, states)
-            out.append(logits[:, -1].float())
+            logits, states, _ = engine.model.decode(engine.params, db, states,
+                                                    **kw)
+            out.append(SH.full(logits[:, -1]).float())
     return out
 
 
@@ -4352,6 +4386,339 @@ def multimodal_phase(dev, mem_rate: float, bf16_rate: float) -> dict:
     return out
 
 
+
+
+def sharded_train(dev, sc) -> dict:
+    """16a: one train step of full-width granite (float32 weights, bf16
+    compute, remat, AdamW) with `sc` and without, from the same seeded
+    weights and batch, one after the other."""
+    import torch
+    from repro_torch.configs import get as get_config
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import registry
+    from repro_torch.models.params import flatten_tree
+    from repro_torch.train import optim as OPT
+    from repro_torch.train import step as STEP
+
+    cfg = get_config(LM_ARCH)
+    model = registry.build(cfg)
+    batch = token_batch(0, 0, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size)
+    tc = STEP.TrainConfig(compute_dtype=torch.bfloat16, remat=True)
+    opt = OPT.AdamWConfig(lr=TRAIN_LR, warmup_steps=1)
+    n = cfg.n_layers
+    want = {"flash_attention": 2 * n, "flash_attention_wgmma": 2 * n,
+            "grouped_matmul": 9 * n, "grouped_matmul_wgmma": 9 * n,
+            "grouped_matmul_dx": 3 * n, "grouped_matmul_dw": 3 * n,
+            "grouped_matmul_dw_wgmma": 3 * n}
+    runs, kept = {}, None
+    for label, s in (("sharded", sc), ("unsharded", None)):
+        params = model.init(torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+        state = OPT.init(params)
+        step = STEP.make_train_step(model, tc, opt, s)
+        if s is not None:
+            params, state = STEP.place_train_state(params, state, s)
+        reset_lm_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, state, met = step(params, state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = lm_launches()
+        del params
+        # a second step from the first's results: the steady time (the
+        # first also fills DTensor's sharding-propagation caches)
+        t0 = time.perf_counter()
+        p2, _, _ = step(p, state, batch)
+        torch.cuda.synchronize()
+        ms2 = (time.perf_counter() - t0) * 1e3
+        del p2, state
+        met = {k: float(v) for k, v in met.items()}
+        leaves = {k: SH.full(v) for k, v in flatten_tree(SH.as_tree(p))}
+        if s is not None:
+            # the sharded run's parameters wait on the host
+            leaves = {k: v.detach().to("cpu") for k, v in leaves.items()}
+        del p
+        runs[label] = {"ms": ms, "ms_second_step": ms2,
+                       "loss": met["loss"], "aux": met["aux"],
+                       "grad_norm": met["grad_norm"], "launches": counts,
+                       "peak_gib": torch.cuda.max_memory_allocated(dev)
+                       / 2**30}
+        print(f"sharding 16a: {label} train step "
+              f"({'ShardingConfig(1 x 1, fsdp, seq_parallel)' if s else 'sc=None'}"
+              f"): {ms:.1f} ms, a second step {ms2:.1f} ms, peak "
+              f"{runs[label]['peak_gib']:.2f} GiB, loss "
+              f"{met['loss']:.6f}, grad_norm {met['grad_norm']:.5f}; "
+              f"launches {counts}  [{smi_line()}]")
+        extra = {k: v for k, v in counts.items() if k not in want}
+        if {k: counts.get(k, 0) for k in want} != want or extra:
+            raise AssertionError(f"16a {label}: launches {counts}, expected "
+                                 f"{want}")
+        if kept is None:
+            kept = leaves
+        else:
+            worst, flips = 0.0, 0
+            for k, b in leaves.items():
+                a = kept[k].to(dev)
+                d = float((a.float() - b.float()).abs().max())
+                worst = max(worst, d / float(b.float().abs().max()))
+                flips += int(((a.float() - b.float()).abs()
+                               > TRAIN_LR).sum())
+                if d > SHARD_TRAIN_TOL * float(b.float().abs().max()):
+                    raise AssertionError(f"16a: leaf {k} differs by {d} "
+                                         f"(max {float(b.abs().max())})")
+            runs["leaf_rel_err"] = worst
+            runs["updates_apart_more_than_lr"] = flips
+        del leaves
+        gc.collect()
+        torch.cuda.empty_cache()
+    rel = abs(runs["sharded"]["loss"] - runs["unsharded"]["loss"]) / \
+        abs(runs["unsharded"]["loss"])
+    runs["loss_rel_err"] = rel
+    print(f"sharding 16a: loss rel err {rel:.3g} (gate {SHARD_LOSS_TOL:g}), "
+          f"worst updated leaf {runs['leaf_rel_err']:.3g} of its max (gate "
+          f"{SHARD_TRAIN_TOL:g}), elements apart by more than lr: "
+          f"{runs['updates_apart_more_than_lr']}")
+    if not rel <= SHARD_LOSS_TOL:
+        raise AssertionError(f"16a: loss {runs['sharded']['loss']} vs "
+                             f"{runs['unsharded']['loss']}")
+    return runs
+
+
+def sharded_serve(dev, sc) -> dict:
+    """16b: prefill and decode steps of granite with `sc` and without: the
+    launches of each, greedy tokens, and both engines teacher-forced on the
+    unsharded tokens (logits at LM_BF16_PATH_TOL)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get as get_config
+    from repro_torch.models import registry
+    from repro_torch.serve.lm import ServeConfig, ServeEngine
+    cfg = get_config(LM_ARCH)
+    model = registry.build(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))
+    n = cfg.n_layers
+    want = {"flash_attention": n, "flash_attention_wgmma": n,
+            "grouped_matmul": 3 * n, "grouped_matmul_wgmma": 3 * n,
+            "flash_decode": n * LM_NEW}
+    out, toks, engines = {}, {}, {}
+    for label, s in (("unsharded", None), ("sharded", sc)):
+        eng = ServeEngine(model, params, ServeConfig(max_len=LM_MAX_LEN),
+                          device=dev, sc=s)
+        eng.generate(prompts, 2)                      # warm-up
+        reset_lm_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks[label] = eng.generate(prompts, LM_NEW)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = lm_launches()
+        out[label] = {"generate_ms": ms, "launches": counts}
+        print(f"sharding 16b: {label} generate {LM_BATCH} x {LM_PROMPT} + "
+              f"{LM_NEW}: {ms:.1f} ms; launches {counts}  [{smi_line()}]")
+        if {k: counts.get(k, 0) for k in want} != want:
+            raise AssertionError(f"16b {label}: launches {counts}, "
+                                 f"expected {want}")
+        engines[label] = eng
+    forced = {k: teacher_forced(e, prompts, toks["unsharded"])
+              for k, e in engines.items()}
+    ok, n_diff, n_close, rels = lm_compare(
+        forced["sharded"], forced["unsharded"], LM_BF16_PATH_TOL)
+    same = int((toks["sharded"] == toks["unsharded"]).sum())
+    out.update({"tokens_equal": same, "tokens": int(toks["sharded"].size),
+                "forced_max_rel": max(rels), "argmax_diff": n_diff,
+                "argmax_near_ties": n_close})
+    print(f"sharding 16b: greedy tokens equal {same} / "
+          f"{toks['sharded'].size}; teacher-forced logits max rel err "
+          f"{max(rels):.3g} (gate {LM_BF16_PATH_TOL:g}), argmax differs "
+          f"{n_diff} ({n_close} near ties)")
+    if not ok:
+        raise AssertionError(f"16b: sharded vs unsharded logits {rels}")
+    del engines, forced
+    return out
+
+
+def sharded_pieces(dev, mesh2, mesh3, module, tmp) -> dict:
+    """16c-g: moe_apply_ep at ep = 1 against moe_apply_sorted; a one-stage
+    pipelined_forward against the plain loop; compressed_psum at pod = 1
+    against a CPU run; elastic.resume_or_init from a checkpoint saved
+    without a mesh; the scene mesh and scheduler on one card."""
+    import torch
+    from repro_torch.checkpoint import elastic as EL
+    from repro_torch.checkpoint import store
+    from repro_torch.configs import get as get_config
+    from repro_torch.distributed import compression as CMP
+    from repro_torch.distributed import pipeline as PP
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import registry
+    from repro_torch.models.params import flatten_tree
+    from repro_torch.serve.engine import PointCloudEngine
+    from repro_torch.serve.scheduler import ServeScheduler
+    from repro_torch.train import optim as OPT
+    out = {}
+    # 16c
+    cfg = get_config(LM_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    p32 = MOE.moe_init(gen, cfg)
+    b, s = SHARD_EP_TOKENS
+    x32 = torch.randn((b, s, cfg.d_model), generator=gen, device=dev)
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 5e-2)):
+        p = {k: (v.to(dtype) if not isinstance(v, dict) else
+                 {q: w.to(dtype) for q, w in v.items()})
+             for k, v in p32.items()}
+        x = x32.to(dtype)
+        reset_lm_launches()
+        with torch.no_grad():
+            got, aux = MOE.moe_apply_ep(p, cfg, x, mesh=mesh2,
+                                        capacity_factor=SHARD_EP_CAPACITY)
+            ep_launches = lm_launches()
+            reset_lm_launches()
+            want, aux_w = MOE.moe_apply_sorted(
+                p, cfg, x, capacity_factor=SHARD_EP_CAPACITY)
+            sorted_launches = lm_launches()
+        got, want = SH.full(got).float(), want.float()
+        rel = float((got - want).abs().max() / want.abs().max())
+        key = str(dtype).removeprefix("torch.")
+        out[f"ep_{key}"] = {"rel_err": rel, "aux": float(SH.full(aux)),
+                            "aux_sorted": float(aux_w)}
+        print(f"sharding 16c: moe_apply_ep (ep 1, {b} x {s} x "
+              f"{cfg.d_model}, {cfg.n_experts} experts top-{cfg.topk}, "
+              f"{key}) vs moe_apply_sorted: max rel err {rel:.3g} (gate "
+              f"{tol:g}); aux {float(SH.full(aux)):.5f} vs "
+              f"{float(aux_w):.5f}; kernel launches of the EP path "
+              f"{ep_launches}, of the sorted path {sorted_launches}")
+        if not rel <= tol or ep_launches or \
+                sorted_launches.get("grouped_matmul") != 3:
+            raise AssertionError(f"16c {key}: rel err {rel}, launches "
+                                 f"{ep_launches}")
+    del p32, x32, p, x, got, want
+    # 16d
+    nb, bb, ss, dd = SHARD_PIPE
+    w = (torch.randn((nb, dd, dd), generator=gen, device=dev)
+         / dd ** 0.5).requires_grad_()
+    xp = torch.randn((bb, ss, dd), generator=gen, device=dev)
+
+    def body_fn(q, h):
+        return torch.tanh(h @ q["w"])
+    y = PP.pipelined_forward(body_fn, {"w": w}, xp, mesh3, n_micro=4)
+    (y.square().sum()).backward()
+    g_pipe = w.grad.clone()
+    w.grad = None
+    h = xp
+    for i in range(nb):
+        h = torch.tanh(h @ w[i])
+    h.square().sum().backward()
+    y, h = y.detach(), h.detach()
+    fwd = float((y - h).abs().max() / h.abs().max())
+    bwd = float((g_pipe - w.grad).abs().max() / w.grad.abs().max())
+    out["pipeline"] = {"fwd_rel_err": fwd, "grad_rel_err": bwd}
+    print(f"sharding 16d: pipelined_forward (1 stage, {nb} bodies of "
+          f"{dd} x {dd}, x {bb} x {ss} x {dd}, 4 microbatches) vs the plain "
+          f"loop: forward {fwd:.3g}, gradient {bwd:.3g} (gate 1e-5)")
+    if not (fwd <= 1e-5 and bwd <= 1e-5):
+        raise AssertionError(f"16d: {fwd} {bwd}")
+    del w, xp, y, h, g_pipe
+    # 16e
+    group = mesh3.get_group("pod")
+    xc = torch.randn((3, 1000), generator=gen, device=dev) * 1e-2
+    err = torch.randn((3, 1000), generator=gen, device=dev) * 1e-4
+    mean, err2 = CMP.compressed_psum(xc, group, err)
+    q, sc_ = CMP._quantize_int8(xc.float() + err)
+    q_c, sc_c = CMP._quantize_int8(xc.float().cpu() + err.cpu())
+    mean_c = CMP._dequantize(q_c, sc_c, xc.shape, torch.float32)
+    dq = int((q.cpu() != q_c).sum())
+    ds = int((sc_.cpu() != sc_c).sum())
+    dm = int((mean.cpu() != mean_c).sum())
+    out["compressed"] = {"payload_differs": dq, "scales_differ": ds,
+                         "mean_differs": dm, "payload": q.numel()}
+    why = "" if not (dq or ds or dm) else (
+        " (a float32 quotient or sum rounds differently on the card)")
+    print(f"sharding 16e: compressed_psum at pod 1 on {tuple(xc.shape)}: "
+          f"{dq} of {q.numel()} int8 payload elements, {ds} of "
+          f"{sc_.numel()} scales and {dm} mean elements differ from a CPU "
+          f"run of the same input{why}")
+    if dq or ds or dm:
+        raise AssertionError("16e: the card's int8 exchange differs from "
+                             "the CPU's")
+    # 16f
+    small = registry.build(get_config(LM_ARCH, reduced=True))
+
+    def init():
+        return small.init(torch.Generator(device=dev).manual_seed(0),
+                          device=dev)
+    saved = init()
+    st = OPT.init(saved)
+    st = st._replace(step=st.step + 7)
+    root = str(Path(tmp) / "elastic")
+    store.save(root, 7, saved)
+    store.save(root + "/opt", 7, st)
+    sc = SH.ShardingConfig(mesh2, fsdp=True)
+    p, o, start = EL.resume_or_init(root, init, sc, LM_BATCH)
+    equal = all(torch.equal(SH.full(a), b) for (_, a), (_, b) in zip(
+        flatten_tree(SH.as_tree(p)), flatten_tree(saved.tree())))
+    out["elastic"] = {"start_step": start, "params_equal": equal,
+                      "opt_step": int(o.step)}
+    print(f"sharding 16f: elastic.resume_or_init on the 1 x 1 mesh from a "
+          f"checkpoint saved without one: start step {start}, params "
+          f"bit-equal {equal}, opt step {int(o.step)}")
+    if not (start == 7 and equal and int(o.step) == 7):
+        raise AssertionError(f"16f: {out['elastic']}")
+    # 16g
+    scene_mesh = SH.make_scene_mesh()
+    sched = ServeScheduler(PointCloudEngine(module, N_STAGES,
+                                            flow="cuda_fused"),
+                           max_batch=3)
+    out["scene"] = {"scene_mesh": None if scene_mesh is None else
+                    scene_mesh.size, "n_devices":
+                    sched.stats()["n_devices"], "max_batch": sched.max_batch}
+    print(f"sharding 16g: make_scene_mesh() -> {scene_mesh}; scheduler "
+          f"n_devices {out['scene']['n_devices']}, max_batch "
+          f"{sched.max_batch}")
+    if scene_mesh is not None or out["scene"]["n_devices"] != 1 or \
+            sched.max_batch != 3:
+        raise AssertionError(f"16g: {out['scene']}")
+    sched.close()
+    return out
+
+
+def sharding_phase(dev, module) -> dict:
+    """Phase 16: the sharded entry points on one card (see the module
+    docstring): NCCL at world 1, 1 x 1 and 1 x 1 x 1 meshes."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.mesh import make_mesh
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.set_device(dev.index or 0)
+    tmp = tempfile.mkdtemp(dir=ROOT / "build")
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous",
+                            rank=0, world_size=1)
+    try:
+        mesh2 = make_mesh((1, 1), ("data", "model"))
+        mesh3 = make_mesh((1, 1, 1), ("pod", "data", "model"))
+        print(f"phase 16 (sharding): NCCL world 1, meshes {mesh2} and "
+              f"{mesh3}  [{smi_line()}]")
+        sc = SH.ShardingConfig(mesh2, fsdp=True, seq_parallel=True)
+        out = {"train": sharded_train(dev, sc)}
+        out["serve"] = sharded_serve(dev, sc)
+        out.update(sharded_pieces(dev, mesh2, mesh3, module, tmp))
+    finally:
+        dist.destroy_process_group()
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"phase 16 (sharding): {out['wall_s']:.1f} s wall")
+    return out
+
+
 def lm_paths_build_report(libs, n_sm: int) -> None:
     """Phase 2, for phases 14 and 15: HGMMA, registers and spills of the
     flash_attention_wgmma instances that jamba (head_dim 128, G 4), gemma2
@@ -4870,8 +5237,12 @@ def main(argv) -> int:
 
     # 15. qwen2-vl (M-RoPE, patch embeddings) and the encoder-decoder
     multimodal = multimodal_phase(dev, mem_rate, bf16_rate)
+    print(smi_line())
 
-    # 16. result lines
+    # 16. the sharded entry points on one card
+    sharding = sharding_phase(dev, module)
+
+    # 17. result lines
     src = "src/repro_torch/kernels/spconv/csrc/spconv_tc.cu"
     plans = {f"level {lv}": sorted(d["plans"]) for lv, d in
              sorted(by_level.items())}
@@ -4997,7 +5368,8 @@ def main(argv) -> int:
                           "wall_s": multimodal["wall_s"],
                           **{arch: {k: v for k, v in multimodal[arch].items()
                                     if k != "instances"}
-                             for arch in ("qwen2vl", "seamless")}}}))
+                             for arch in ("qwen2vl", "seamless")}},
+                      "sharding": sharding}))
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,8 @@ of the reference's `launch/shapes.py` (`ShapeSpec`, `SHAPES`, the [vlm] /
 [audio] constants and `cell_supported`).
 
 The reference's `input_specs` / `decode_state_specs` build the dry-run's
-abstract inputs; they come with the mesh and the dry-run (ROADMAP.md
-Queue A item 6).
+abstract inputs; they come with the dry-run (`launch/dryrun.py`), the
+next slice of ROADMAP.md Queue A item 6.  The mesh is `launch/mesh.py`.
 
 Skip rules (per assignment):
   * long_500k needs sub-quadratic attention -> only archs with

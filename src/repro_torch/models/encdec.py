@@ -28,6 +28,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import identity_shard
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.models import layers as L
 from repro_torch.models.lm import _index, _stack, param_tree, stack_drawn
@@ -63,22 +64,26 @@ def cross_attention_init(gen: torch.Generator, cfg: ArchConfig,
 def cross_kv(p, cfg: ArchConfig, enc_out: torch.Tensor) -> CrossCache:
     b, se, _ = enc_out.shape
     h, hd = cfg.n_heads, cfg.resolved_head_dim
-    k = nn.dense(p["wk"], enc_out).reshape(b, se, h, hd)
-    v = nn.dense(p["wv"], enc_out).reshape(b, se, h, hd)
+    k = L.split_heads(nn.dense(p["wk"], enc_out), h)
+    v = L.split_heads(nn.dense(p["wv"], enc_out), h)
     return CrossCache(k, v)
 
 
 def cross_attention_apply(p, cfg: ArchConfig, x: torch.Tensor,
-                          cache: CrossCache) -> torch.Tensor:
+                          cache: CrossCache,
+                          shard=identity_shard) -> torch.Tensor:
     """x (B, S_dec, D) attends to all S_enc rows of `cache`: no mask, no
     RoPE."""
     b, s, _ = x.shape
     h, hd = cfg.n_heads, cfg.resolved_head_dim
-    q = nn.dense(p["wq"], x).reshape(b, s, h, hd)
-    out = attention_ref(q.transpose(1, 2), cache.k.transpose(1, 2),
-                        cache.v.transpose(1, 2), causal=False)
-    out = out.transpose(1, 2).reshape(b, s, h * hd)
-    return nn.dense(p["wo"], out)
+    q = L.split_heads(nn.dense(p["wq"], x), h)
+    out = L.local_attention(
+        lambda q, k, v: attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                      v.transpose(1, 2),
+                                      causal=False).transpose(1, 2),
+        q, cache.k, cache.v, shard)
+    out = out.reshape(b, s, h * hd)
+    return shard(nn.dense(p["wo"], out), ("batch", "seq", "d_model"))
 
 
 # ---------------------------------------------------------------------------
@@ -96,21 +101,26 @@ def enc_layer_init(gen: torch.Generator, cfg: ArchConfig,
 
 
 def enc_layer_apply(p, cfg: ArchConfig, x: torch.Tensor,
-                    positions: torch.Tensor) -> torch.Tensor:
+                    positions: torch.Tensor,
+                    shard=identity_shard) -> torch.Tensor:
     h = L.norm_apply(cfg, p["norm_attn"], x)
     b, s, _ = h.shape
     hh, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    q = nn.dense(p["attn"]["wq"], h).reshape(b, s, hh, hd)
-    k = nn.dense(p["attn"]["wk"], h).reshape(b, s, hkv, hd)
-    v = nn.dense(p["attn"]["wv"], h).reshape(b, s, hkv, hd)
+    q = L.split_heads(nn.dense(p["attn"]["wq"], h), hh)
+    k = L.split_heads(nn.dense(p["attn"]["wk"], h), hkv)
+    v = L.split_heads(nn.dense(p["attn"]["wv"], h), hkv)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
-    o = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
-                      v.transpose(1, 2), causal=False)   # bidirectional
-    o = o.transpose(1, 2).reshape(b, s, hh * hd)
+    o = L.local_attention(                               # bidirectional
+        lambda q, k, v: attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                      v.transpose(1, 2),
+                                      causal=False).transpose(1, 2),
+        q, k, v, shard)
+    o = o.reshape(b, s, hh * hd)
     x = x + nn.dense(p["attn"]["wo"], o)
-    return x + L.mlp_apply(p["ffn"], cfg,
-                           L.norm_apply(cfg, p["norm_ffn"], x))
+    x = x + L.mlp_apply(p["ffn"], cfg, L.norm_apply(cfg, p["norm_ffn"], x),
+                        shard=shard)
+    return shard(x, ("batch", "seq", "d_model"))
 
 
 # ---------------------------------------------------------------------------
@@ -133,7 +143,8 @@ def dec_layer_init(gen: torch.Generator, cfg: ArchConfig,
 
 def dec_layer_apply(p, cfg: ArchConfig, x: torch.Tensor,
                     positions: torch.Tensor, *, mode: str, enc_out=None,
-                    state: Optional[DecLayerState] = None, cache_pos=None):
+                    state: Optional[DecLayerState] = None, cache_pos=None,
+                    shard=identity_shard):
     """Returns (x, new_state): None in train mode; in decode mode the
     state's self-attention cache is written in place and its cross cache
     read as it is."""
@@ -141,17 +152,18 @@ def dec_layer_apply(p, cfg: ArchConfig, x: torch.Tensor,
     h, self_kv = L.attention_apply(
         p["self"], cfg, h, positions, layer_window=None, mode=mode,
         cache=state.self_kv if state is not None else None,
-        cache_pos=cache_pos)
+        cache_pos=cache_pos, shard=shard)
     x = x + h
 
     h = L.norm_apply(cfg, p["norm_cross"], x)
     cc = state.cross if mode == "decode" else cross_kv(p["cross"], cfg,
                                                        enc_out)
-    x = x + cross_attention_apply(p["cross"], cfg, h, cc)
+    x = x + cross_attention_apply(p["cross"], cfg, h, cc, shard=shard)
 
     h = L.norm_apply(cfg, p["norm_ffn"], x)
-    x = x + L.mlp_apply(p["ffn"], cfg, h)
-    return x, (DecLayerState(self_kv, cc) if mode != "train" else None)
+    x = x + L.mlp_apply(p["ffn"], cfg, h, shard=shard)
+    return shard(x, ("batch", "seq", "d_model")), \
+        (DecLayerState(self_kv, cc) if mode != "train" else None)
 
 
 # ---------------------------------------------------------------------------
@@ -200,20 +212,22 @@ def init_encdec_state(cfg: ArchConfig, batch: int, max_len: int,
 
 
 def encode(params, cfg: ArchConfig, frame_embeds: torch.Tensor,
-           enc_positions: torch.Tensor) -> torch.Tensor:
+           enc_positions: torch.Tensor,
+           shard=identity_shard) -> torch.Tensor:
     """frame_embeds (B, S_enc, D): the stubbed audio frontend's output."""
     params = param_tree(params)
-    x = frame_embeds.to(params["embed"]["emb"].dtype)
+    x = shard(frame_embeds.to(params["embed"]["emb"].dtype),
+              ("batch", "seq", "d_model"))
     for i in range(cfg.encoder_layers):
         x = enc_layer_apply(_index(params["enc_layers"], i), cfg, x,
-                            enc_positions)
+                            enc_positions, shard)
     return L.norm_apply(cfg, params["enc_norm"], x)
 
 
 def encdec_apply(params, cfg: ArchConfig, frame_embeds, enc_positions,
                  tokens, dec_positions, *, mode: str = "train", states=None,
                  cache_pos=None, remat: bool = False,
-                 return_hidden: bool = False):
+                 return_hidden: bool = False, shard=identity_shard):
     """Returns (logits, new_states, aux = 0).  train: no state, `remat`
     recomputes each decoder layer in the backward pass; prefill: the
     decoder's states stacked over its layers (self K/V of S_dec rows, cross
@@ -223,20 +237,21 @@ def encdec_apply(params, cfg: ArchConfig, frame_embeds, enc_positions,
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(mode)
     params = param_tree(params)
-    x = nn.embed(params["embed"], tokens)
+    x = shard(nn.embed(params["embed"], tokens), ("batch", "seq", "d_model"))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if mode == "decode":
         for i in range(cfg.n_layers):
             x, _ = dec_layer_apply(
                 _index(params["dec_layers"], i), cfg, x, dec_positions,
-                mode="decode", state=_index(states, i), cache_pos=cache_pos)
+                mode="decode", state=_index(states, i), cache_pos=cache_pos,
+                shard=shard)
         new_states = states
     else:
-        enc_out = encode(params, cfg, frame_embeds, enc_positions)
+        enc_out = encode(params, cfg, frame_embeds, enc_positions, shard)
 
         def body(x, p_layer):
             return dec_layer_apply(p_layer, cfg, x, dec_positions, mode=mode,
-                                   enc_out=enc_out)[0]
+                                   enc_out=enc_out, shard=shard)[0]
         per_layer = []
         for i in range(cfg.n_layers):
             p_layer = _index(params["dec_layers"], i)
@@ -245,11 +260,12 @@ def encdec_apply(params, cfg: ArchConfig, frame_embeds, enc_positions,
                     if remat else body(x, p_layer)
                 continue
             x, st = dec_layer_apply(p_layer, cfg, x, dec_positions,
-                                    mode=mode, enc_out=enc_out)
+                                    mode=mode, enc_out=enc_out, shard=shard)
             per_layer.append(st)
         new_states = _stack(per_layer) if mode == "prefill" else None
 
     x = L.norm_apply(cfg, params["final_norm"], x)
     if return_hidden:
         return x, new_states, aux
-    return nn.dense(params["lm_head"], x), new_states, aux
+    return shard(nn.dense(params["lm_head"], x), ("batch", "seq", "vocab")), \
+        new_states, aux

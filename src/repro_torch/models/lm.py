@@ -41,6 +41,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as MB
 from repro_torch.models import moe as MOE
@@ -208,22 +209,23 @@ def init_lm_state(cfg: ArchConfig, batch: int, max_len: int,
 # ---------------------------------------------------------------------------
 
 def sublayer_apply(p, cfg: ArchConfig, spec: SubLayerSpec, x, positions, *,
-                   mode: str, state, cache_pos, moe_impl):
+                   mode: str, state, cache_pos, moe_impl,
+                   shard=SH.identity_shard, mesh=None):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = L.norm_apply(cfg, p["norm_mix"], x)
     if spec.kind == "attn":
         h, new_state = L.attention_apply(
             p["mix"], cfg, h, positions, layer_window=spec.window, mode=mode,
-            cache=state, cache_pos=cache_pos)
+            cache=state, cache_pos=cache_pos, shard=shard)
     elif spec.kind == "mamba":
         h, new_state = MB.mamba_apply(p["mix"], cfg, h, mode=mode,
-                                      state=state)
+                                      state=state, shard=shard)
     elif spec.kind == "mlstm":
         h, new_state = XL.mlstm_block_apply(p["mix"], cfg, h, mode=mode,
-                                            state=state)
+                                            state=state, shard=shard)
     elif spec.kind == "slstm":
         h, new_state = XL.slstm_block_apply(p["mix"], cfg, h, mode=mode,
-                                            state=state)
+                                            state=state, shard=shard)
     else:
         raise ValueError(spec.kind)
     if cfg.sandwich_norm:
@@ -233,9 +235,15 @@ def sublayer_apply(p, cfg: ArchConfig, spec: SubLayerSpec, x, positions, *,
     if spec.ffn is not None:
         h = L.norm_apply(cfg, p["norm_ffn"], x)
         if spec.ffn == "moe":
-            h, aux = MOE.moe_apply(p["ffn"], cfg, h, impl=moe_impl)
+            if moe_impl == "ep":
+                h, aux = MOE.moe_apply_ep(p["ffn"], cfg, h, mesh=mesh)
+            elif shard.sc is not None:
+                h, aux = MOE.moe_apply_local(p["ffn"], cfg, h, moe_impl,
+                                             shard.sc)
+            else:
+                h, aux = MOE.moe_apply(p["ffn"], cfg, h, impl=moe_impl)
         else:
-            h = L.mlp_apply(p["ffn"], cfg, h)
+            h = L.mlp_apply(p["ffn"], cfg, h, shard=shard)
         if cfg.sandwich_norm:
             h = L.norm_apply(cfg, p["norm_ffn_post"], h)
         x = x + h
@@ -243,16 +251,18 @@ def sublayer_apply(p, cfg: ArchConfig, spec: SubLayerSpec, x, positions, *,
 
 
 def body_apply(p, cfg: ArchConfig, x, positions, *, mode: str, states=None,
-               cache_pos=None, moe_impl: str = "sorted"):
+               cache_pos=None, moe_impl: str = "sorted",
+               shard=SH.identity_shard, mesh=None):
     new_states = {}
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, spec in enumerate(body_layout(cfg)):
         st = states[f"sub{i}"] if states is not None else None
         x, nst, a = sublayer_apply(
             p[f"sub{i}"], cfg, spec, x, positions, mode=mode, state=st,
-            cache_pos=cache_pos, moe_impl=moe_impl)
+            cache_pos=cache_pos, moe_impl=moe_impl, shard=shard, mesh=mesh)
         new_states[f"sub{i}"] = nst
         aux = aux + a
+        x = shard(x, ("batch", "seq", "d_model"))
     return x, new_states, aux
 
 
@@ -266,11 +276,11 @@ def embed_tokens(params, cfg: ArchConfig, tokens, embeds=None):
         scale = torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32)
         x = x * float(scale.to(x.dtype))
     if embeds is not None:
-        x = torch.cat([embeds.to(x.dtype), x], dim=1)
+        x = torch.cat([SH.like(embeds.to(x.dtype), x), x], dim=1)
     return x
 
 
-def lm_head(params, cfg: ArchConfig, x):
+def lm_head(params, cfg: ArchConfig, x, shard=SH.identity_shard):
     x = L.norm_apply(cfg, params["final_norm"], x)
     if cfg.tie_embeddings:
         logits = x @ params["embed"]["emb"].T
@@ -279,7 +289,7 @@ def lm_head(params, cfg: ArchConfig, x):
     if cfg.final_softcap is not None:
         logits = cfg.final_softcap * torch.tanh(
             logits.to(torch.float32) / cfg.final_softcap)
-    return logits
+    return shard(logits, ("batch", "seq", "vocab"))
 
 
 def _store(dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
@@ -293,22 +303,27 @@ def _store(dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
 def lm_apply(params, cfg: ArchConfig, tokens, positions, *,
              mode: str = "train", states=None, cache_pos=None,
              moe_impl: str = "sorted", embeds=None,
-             return_hidden: bool = False, remat: bool = False):
+             return_hidden: bool = False, remat: bool = False,
+             shard=SH.identity_shard, mesh=None):
     """tokens (B, S); positions (B, S[, 3]) over the embeds' rows and the
     tokens'.  Returns (logits_or_hidden, new_states, aux), over S_img + S
     rows with `embeds` (B, S_img, D).  In decode mode `states` is updated
     in place and returned.  `return_hidden` skips the final norm and head;
-    `remat` (train mode) recomputes each body in the backward pass."""
+    `remat` (train mode) recomputes each body in the backward pass.
+    `shard` / `mesh` are the reference's sharding callback and mesh
+    (`distributed/sharding.py`); with them the parameters are DTensors
+    and so are the activations."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(mode)
     params = param_tree(params)
     x = embed_tokens(params, cfg, tokens, embeds)
+    x = shard(x, ("batch", "seq", "d_model"))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     n_bodies = cfg.n_layers // cfg.block_pattern
 
     def train_body(x, p_body):
         y, _, a = body_apply(p_body, cfg, x, positions, mode="train",
-                             moe_impl=moe_impl)
+                             moe_impl=moe_impl, shard=shard, mesh=mesh)
         return y, a
 
     per_body = []
@@ -324,7 +339,7 @@ def lm_apply(params, cfg: ArchConfig, tokens, positions, *,
         st = _index(states, i) if mode == "decode" else None
         x, nst, a = body_apply(p_body, cfg, x, positions, mode=mode,
                                states=st, cache_pos=cache_pos,
-                               moe_impl=moe_impl)
+                               moe_impl=moe_impl, shard=shard, mesh=mesh)
         aux = aux + a
         if mode == "decode":
             tree_map(_store, st, nst)
@@ -338,4 +353,4 @@ def lm_apply(params, cfg: ArchConfig, tokens, positions, *,
         new_states = states
     if return_hidden:
         return x, new_states, aux
-    return lm_head(params, cfg, x), new_states, aux
+    return lm_head(params, cfg, x, shard), new_states, aux

@@ -29,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import nn
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import identity_shard
 
 
 class MambaState(NamedTuple):
@@ -173,13 +174,14 @@ def _causal_conv(p, cfg: ArchConfig, x: torch.Tensor,
 
 
 def mamba_apply(p, cfg: ArchConfig, x: torch.Tensor, *, mode: str,
-                state: Optional[MambaState] = None):
+                state: Optional[MambaState] = None, shard=identity_shard):
     """x (B, S, D).  Returns (out, new_state_or_None)."""
     b, s, d = x.shape
     di = cfg.ssm_expand * d
 
     xz = nn.dense(p["in_proj"], x)
     xin, z = xz[..., :di], xz[..., di:]
+    xin = shard(xin, ("batch", "seq", "d_inner"))
 
     if mode == "decode":
         if state is None or s != 1:
@@ -199,7 +201,7 @@ def mamba_apply(p, cfg: ArchConfig, x: torch.Tensor, *, mode: str,
 
     y = y.to(x.dtype) + p["D"] * xc
     out = nn.dense(p["out_proj"], y * F.silu(z))
-    return out, new_state
+    return shard(out, ("batch", "seq", "d_model")), new_state
 
 
 def init_mamba_state(cfg: ArchConfig, batch: int, dtype=torch.float32,

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch import nn
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import identity_shard
 from repro_torch.models.mamba import check_chunks, chunked, linear_scan
 
 M_INIT = -1e30      # the stabiliser's start
@@ -147,13 +148,15 @@ def mlstm_block_init(gen: torch.Generator, cfg: ArchConfig,
 
 
 def mlstm_block_apply(p, cfg: ArchConfig, x, *, mode: str,
-                      state: Optional[MLSTMState] = None):
+                      state: Optional[MLSTMState] = None,
+                      shard=identity_shard):
     b, s, d = x.shape
     di = cfg.ssm_expand * d
     hh = cfg.n_heads
     dk = di // hh
     up = nn.dense(p["up"], x)
     xm, z = up[..., :di], up[..., di:]
+    xm = shard(xm, ("batch", "seq", "d_inner"))
     q = nn.dense(p["wq"], xm).reshape(b, s, hh, dk)
     k = nn.dense(p["wk"], xm).reshape(b, s, hh, dk)
     v = nn.dense(p["wv"], xm).reshape(b, s, hh, dk)
@@ -168,7 +171,7 @@ def mlstm_block_apply(p, cfg: ArchConfig, x, *, mode: str,
     h = h.reshape(b, s, di)
     h = nn.rmsnorm(p["norm"], h)
     out = nn.dense(p["down"], h * F.silu(z))
-    return out, new_state
+    return shard(out, ("batch", "seq", "d_model")), new_state
 
 
 def _mlstm_zero_state(batch, hh, dk, dv, device) -> MLSTMState:
@@ -226,7 +229,8 @@ def _slstm_step(p, cfg: ArchConfig, x_t, st: SLSTMState) -> SLSTMState:
 
 
 def slstm_block_apply(p, cfg: ArchConfig, x, *, mode: str,
-                      state: Optional[SLSTMState] = None):
+                      state: Optional[SLSTMState] = None,
+                      shard=identity_shard):
     b, s, d = x.shape
     if state is None:
         state = init_slstm_state(cfg, b, x.dtype, x.device)
@@ -243,7 +247,7 @@ def slstm_block_apply(p, cfg: ArchConfig, x, *, mode: str,
         h = torch.stack(hs, dim=1)
         new_state = st if mode == "prefill" else None
     out = nn.dense(p["proj"], nn.rmsnorm(p["norm"], h))
-    return out, new_state
+    return shard(out, ("batch", "seq", "d_model")), new_state
 
 
 def init_slstm_state(cfg: ArchConfig, batch: int, dtype=torch.float32,

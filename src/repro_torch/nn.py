@@ -101,6 +101,14 @@ def embedding_init(gen: torch.Generator, vocab: int, d: int,
 
 
 def embed(p, ids: torch.Tensor) -> torch.Tensor:
+    """Rows of the table.  A vocab-sharded table (a DTensor) is looked up
+    by DTensor's embedding rule: a masked local lookup and a partial sum
+    over the vocab shards (the reference's `_pinned_embed_lookup`), the
+    ids replicated."""
+    from repro_torch.distributed.sharding import full, is_dtensor, like
+    if is_dtensor(p["emb"]):
+        return torch.nn.functional.embedding(like(full(ids), p["emb"]),
+                                             p["emb"])
     return p["emb"][ids]
 
 

@@ -45,7 +45,8 @@ class PointCloudEngine:
     resolves to the first CUDA device and raises when there is none;
     `device="cpu"` opts into the plain PyTorch versions of the kernels.
     `max_batch` / `mesh` / `fault_plan` / `obs` configure the scheduler
-    behind `segment_batch` (mesh="auto" serves on this one device).
+    behind `segment_batch` (mesh="auto" splits micro-batches over the
+    host's CUDA devices, and serves on this one device when it is alone).
     """
 
     def __init__(self, params_or_module, n_stages: int,
@@ -154,6 +155,17 @@ class PointCloudEngine:
                                    feats.to(torch.float32), flow=self.flow,
                                    levels=levels)
         return torch.argmax(logits, dim=-1).to(torch.int32)
+
+    def replica(self, device) -> "PointCloudEngine":
+        """This engine on another device for scene-parallel serving: a
+        copy of the weights there, the same session and flow.  Its
+        `_apply_batch` takes operands on that device."""
+        import copy
+        dev = torch.device(device)
+        rep = copy.copy(self)
+        rep.device = dev
+        rep.module = copy.deepcopy(self.module).to(dev)
+        return rep
 
     def _apply_batch(self, levels_b, coords_b: torch.Tensor,
                      mask_b: torch.Tensor,

@@ -19,6 +19,13 @@ Differences from the reference, none of which changes a value:
 
 On the card the prefill runs the hand-written flash-attention and
 grouped-matmul kernels, and each decode step the flash-decode kernel.
+
+With a sharding config (`sc`, `distributed/sharding.py`) every rank of
+`sc.mesh` runs the engine: the weights are DTensors placed by
+`params_shardings`, the KV caches by `state_specs` (each rank holds and
+writes its own shard), the activations by the shard callback, and the
+kernels run on local shards.  The steps take plain global batches and
+return the next tokens as plain global values.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ import torch
 
 from repro_torch import nn
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as SH
 from repro_torch.models.lm import param_tree
 from repro_torch.models.params import tree_map
 from repro_torch.models.registry import Model
@@ -43,23 +51,34 @@ class ServeConfig:
     compute_dtype: Any = torch.bfloat16
 
 
-def make_prefill_step(model: Model, svc: ServeConfig):
+def _sharding(sc):
+    return (SH.make_shard_fn(sc), sc.mesh) if sc is not None else \
+        (SH.identity_shard, None)
+
+
+def make_prefill_step(model: Model, svc: ServeConfig, sc=None):
     """prefill_step(params, batch) -> (next token (B,) int32, states); the
     params are already in `svc.compute_dtype` (ServeEngine casts once)."""
+    shard, mesh = _sharding(sc)
+
     def prefill_step(params, batch):
-        logits, states, _ = model.prefill(params, batch)
-        next_tok = logits[:, -1].argmax(dim=-1).to(torch.int32)
+        logits, states, _ = model.prefill(params, batch, shard=shard,
+                                          mesh=mesh)
+        next_tok = SH.full(logits[:, -1]).argmax(dim=-1).to(torch.int32)
         return next_tok, states
 
     return prefill_step
 
 
-def make_decode_step(model: Model, svc: ServeConfig):
+def make_decode_step(model: Model, svc: ServeConfig, sc=None):
     """decode_step(params, states, batch) -> (next token (B,) int32,
     states); `states` is updated in place."""
+    shard, mesh = _sharding(sc)
+
     def decode_step(params, states, batch):
-        logits, states, _ = model.decode(params, batch, states)
-        next_tok = logits[:, -1].argmax(dim=-1).to(torch.int32)
+        logits, states, _ = model.decode(params, batch, states, shard=shard,
+                                         mesh=mesh)
+        next_tok = SH.full(logits[:, -1]).argmax(dim=-1).to(torch.int32)
         return next_tok, states
 
     return decode_step
@@ -68,27 +87,35 @@ def make_decode_step(model: Model, svc: ServeConfig):
 class ServeEngine:
     """Greedy batched generation over fixed slots, on
     `resolve_device(device)`: the card unless the caller passes
-    `device="cpu"`."""
+    `device="cpu"`; under `sc` on every rank of its mesh."""
 
-    def __init__(self, model: Model, params, svc: ServeConfig, device=None):
+    def __init__(self, model: Model, params, svc: ServeConfig, device=None,
+                 sc=None):
         self.device = resolve_device(device)
         self.model = model
         self.svc = svc
+        self.sc = sc
         dev = self.device
         self.params = tree_map(
             lambda x: x.to(dev),
             nn.cast_floating(param_tree(params), svc.compute_dtype))
-        self.prefill_step = make_prefill_step(model, svc)
-        self.decode_step = make_decode_step(model, svc)
+        if sc is not None:
+            self.params = SH.distribute(
+                self.params, SH.params_shardings(self.params, sc), sc.mesh)
+        self.prefill_step = make_prefill_step(model, svc, sc)
+        self.decode_step = make_decode_step(model, svc, sc)
 
     def place_states(self, pre_states, batch: int):
         """A zero cache of `max_len` slots in `svc.cache_dtype` with the
         prefill states copied into its first slots."""
         states = self.model.init_state(batch, self.svc.max_len,
                                        self.svc.cache_dtype, self.device)
+        if self.sc is not None:
+            states = SH.distribute(states, SH.state_specs(states, self.sc),
+                                   self.sc.mesh)
 
         def place(dst, src):
-            dst[tuple(slice(0, n) for n in src.shape)].copy_(src)
+            SH.write_into(dst, SH.full(src).to(dst.dtype))
             return dst
         return tree_map(place, states, pre_states)
 

@@ -71,8 +71,10 @@ wants fixed bucket shapes and the card wants full micro-batches.
 
 Dispatch runs under `torch.cuda.device(engine.device)` on the calling
 thread's current stream, whichever thread (a producer, `drain()`, the
-watchdog) dispatches.  One card serves one scheduler: `mesh="auto"`
-resolves to None, and any other mesh raises (ROADMAP.md Queue A item 6).
+watchdog) dispatches.  `mesh="auto"` splits each micro-batch's scenes
+over the host's CUDA devices (`distributed.sharding.make_scene_mesh`), and
+resolves to None on one card: the engine's device serves every
+micro-batch.
 """
 
 from __future__ import annotations
@@ -90,6 +92,7 @@ import torch
 
 from repro_torch.api import AssemblyCache
 from repro_torch.core import mapping as M
+from repro_torch.distributed import sharding as SH
 from repro_torch.launch import fault_tolerance as FT
 from repro_torch.obs import Observability
 from repro_torch.serve import buckets as BK
@@ -246,9 +249,13 @@ class ServeScheduler:
     composition-keyed assembly cache, the in-flight pipeline, the
     failure-isolation policy, and serving telemetry.
 
-    mesh="auto" resolves to None: the engine's one device serves every
-    micro-batch.  Any other mesh raises NotImplementedError (sharding over
-    cards is ROADMAP.md Queue A item 6).
+    mesh="auto" picks a scene-axis mesh over the host's CUDA devices
+    (`sharding.make_scene_mesh`; None on one card) and runs micro-batches
+    through `sharding.shard_over_scenes`, one engine replica a device;
+    `max_batch` widths are rounded up to a multiple of the device count so
+    the scene axis always divides the mesh.  A `SceneMesh` may be passed
+    (e.g. `make_scene_mesh(devices=[...])`); None serves on the engine's
+    device.
 
     max_batch              : int, {capacity: width, "default": w} dict,
                              or None (ladder-level `BucketLadder.max_batch`
@@ -340,6 +347,7 @@ class ServeScheduler:
     """
 
     def __init__(self, engine, max_batch=None, mesh="auto",
+                 axis: str = "scene",
                  pipeline_depth: int = DEFAULT_PIPELINE_DEPTH,
                  assembly_cache_entries: int = DEFAULT_ASSEMBLY_ENTRIES,
                  max_wait_s: float | None = None,
@@ -364,15 +372,25 @@ class ServeScheduler:
             raise ValueError("max_backlog must be >= 1 (or None)")
         self.engine = engine
         self.ladder: BK.BucketLadder = engine.ladder
-        if mesh != "auto" and mesh is not None:
-            raise NotImplementedError(
-                "a scene-axis mesh over several cards is not ported yet; "
-                "see ROADMAP.md Queue A item 6 (mesh='auto' or None serve "
-                "on the engine's device)")
+        if mesh == "auto":
+            mesh = SH.make_scene_mesh(axis)
+        self.mesh = mesh
+        n_dev = mesh.size if mesh is not None else 1
+        if mesh is not None:
+            self._apply = SH.shard_over_scenes(
+                [engine._apply_batch if torch.device(d) == engine.device
+                 else engine.replica(d)._apply_batch for d in mesh.devices],
+                mesh, axis)
+        else:
+            self._apply = engine._apply_batch
         self.device = engine.device
         default, overrides = BK.resolve_max_batch(max_batch, self.ladder)
-        self.max_batch = default
-        self.max_batch_overrides = dict(overrides)
+
+        def round_up(b):
+            return n_dev * max(1, math.ceil(b / n_dev))
+        self.max_batch = round_up(default)
+        self.max_batch_overrides = {c: round_up(b)
+                                    for c, b in dict(overrides).items()}
         self.pipeline_depth = int(pipeline_depth)
         self.max_wait_s = max_wait_s
         self.validate = bool(validate)
@@ -932,8 +950,7 @@ class ServeScheduler:
                 hits, operands = self._assemble(reqs, cap, mb, marks)
                 t1 = time.perf_counter()
                 self._h_assembly.observe(t1 - t0)
-                preds, done = _labels_to_host(
-                    self.engine._apply_batch(*operands))
+                preds, done = _labels_to_host(self._apply(*operands))
         except Exception as e:
             self._on_slot_failed(
                 _InFlight(cap, list(reqs), [False] * n_real, None,
@@ -1375,7 +1392,8 @@ class ServeScheduler:
                 "max_batch_overrides": dict(self.max_batch_overrides),
                 "scheduler_max_backlog": self.max_backlog,
                 "pipeline_depth": self.pipeline_depth,
-                "n_devices": 1,
+                "n_devices": (self.mesh.size if self.mesh is not None
+                              else 1),
                 "compiles": {k: v for k, v in
                              self.engine.compile_stats().items()
                              if k in ("build", "apply_batch")},

@@ -16,8 +16,7 @@ from torch.utils.checkpoint import checkpoint
 
 def _mask(labels: torch.Tensor, mask: Optional[torch.Tensor]):
     if mask is None:
-        return torch.ones(labels.shape, dtype=torch.float32,
-                          device=labels.device)
+        return torch.ones_like(labels, dtype=torch.float32)
     return mask.to(torch.float32)
 
 

@@ -243,10 +243,48 @@ def test_train_restart_continuity(capsys, tmp_path):
     assert ST.latest_step(ck) == 8
 
 
+def test_main_frees_the_initial_trees_after_a_step(monkeypatch):
+    """The launcher holds no reference to the initial parameters once a
+    step has returned new ones (the card holds one tree, not two: a
+    trainer that kept it ran out of memory on gemma2-2b)."""
+    import gc
+    import weakref
+
+    from repro_torch.models import lm as TLM
+    made, real = [], TLM.lm_init
+
+    def spy(*a, **k):
+        tree = real(*a, **k)
+        made.append(weakref.ref(tree))
+        return tree
+    monkeypatch.setattr(TLM, "lm_init", spy)
+    alive = []
+
+    def on_step(step, metrics, stats):
+        gc.collect()
+        alive.append(made[0]() is not None)
+    TRAIN.main(["--arch", "qwen1.5-4b", "--reduced", "--device", "cpu",
+                "--steps", "2", "--batch", "2", "--seq", "16"],
+               on_step=on_step)
+    assert alive == [False, False]
+
+
 def test_train_flags_and_device_policy(capsys, monkeypatch, tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        TRAIN.main(["--arch", "qwen1.5-4b", "--reduced", "--mesh", "debug",
-                    "--device", "cpu"])
+    # a mesh needs a process group of its size: none (no torchrun
+    # environment) raises, and so does a world of one under the (2, 4) mesh
+    mesh_run = ["--arch", "qwen1.5-4b", "--reduced", "--mesh", "debug",
+                "--device", "cpu"]
+    with pytest.raises(RuntimeError, match="initialised process group"):
+        TRAIN.main(mesh_run)
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"file://{tmp_path}/rendezvous", rank=0,
+        world_size=1)
+    try:
+        with pytest.raises(ValueError, match="8 devices but the process "
+                                             "group has world size 1"):
+            TRAIN.main(mesh_run)
+    finally:
+        torch.distributed.destroy_process_group()
     with pytest.raises(KeyError, match="unknown arch 'no-such-arch'"):
         TRAIN.main(["--arch", "no-such-arch", "--reduced", "--device", "cpu"])
     # seamless's batches need frame embeddings, which `token_batch` does
@@ -263,6 +301,9 @@ def test_train_flags_and_device_policy(capsys, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         TRAIN.main(["--arch", "qwen1.5-4b", "--reduced", "--steps", "1"])
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        TRAIN.main(["--arch", "qwen1.5-4b", "--reduced", "--steps", "1",
+                    "--mesh", "debug"])
     # --accum 2, --moe-impl (parsed, unused) and bfloat16 on the CPU; no
     # closing line below 10 steps
     out = _port_main(capsys, ["--arch", "granite-moe-1b-a400m", "--reduced",

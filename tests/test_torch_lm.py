@@ -248,15 +248,19 @@ def test_device_policy(granite, monkeypatch):
 
 
 def test_unported_paths_raise():
-    """What stays unported raises (the expert-parallel MoE, Queue A item 6);
-    the audio family builds the encoder-decoder; M-RoPE sections that do
-    not cover head_dim / 2 raise on (B, S, 3) positions, where the
-    reference asserts, and (B, S) positions take plain RoPE."""
+    """The expert-parallel MoE takes a mesh and refuses an expert count
+    its model axis cannot split (the reference asserts); the audio family
+    builds the encoder-decoder; M-RoPE sections that do not cover
+    head_dim / 2 raise on (B, S, 3) positions, where the reference
+    asserts, and (B, S) positions take plain RoPE."""
     from repro.models import layers as RL
+    from repro_torch.distributed.sharding import AbstractMesh
     from repro_torch.models import encdec as TED
     from repro_torch.models import moe as TM
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        TM.moe_apply(None, None, None, impl="ep")
+    gran = tget(ARCH, reduced=True)
+    with pytest.raises(ValueError, match="8 experts cannot be split"):
+        TM.moe_apply(None, gran, torch.zeros((2, 4, gran.d_model)),
+                     impl="ep", mesh=AbstractMesh((1, 3), ("data", "model")))
     audio = TR.build(tget("seamless-m4t-medium", reduced=True))
     assert audio.init.__module__ == TR.__name__ and \
         audio.init.__qualname__.startswith("_build_encdec")

@@ -232,7 +232,14 @@ def _imports(path: Path):
 def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
+    # the multi-rank test processes run the port without jax too
+    files.append(REPO / "tests" / "torch_dist.py")
     assert len(files) > 10
+    names = {str(p.relative_to(REPO / "src" / "repro_torch"))
+             for p in files if "repro_torch" in str(p)}
+    assert {"distributed/sharding.py", "distributed/pipeline.py",
+            "distributed/compression.py", "checkpoint/elastic.py",
+            "launch/mesh.py"} <= names
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]

@@ -298,11 +298,36 @@ def test_engine_batched_levels_cache_per_scene():
 
 
 def test_mesh_other_than_auto_is_not_ported():
+    """mesh=None and mesh="auto" on a host without two cards serve on the
+    engine's device: no scene mesh, one device, max_batch as given."""
     engine = mini_engine()
     assert ServeScheduler(engine, mesh=None).stats()["n_devices"] == 1
-    assert ServeScheduler(engine).stats()["n_devices"] == 1
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        ServeScheduler(engine, mesh=object())
+    sched = ServeScheduler(engine, max_batch=3)
+    assert sched.mesh is None and sched.max_batch == 3
+    assert sched.stats()["n_devices"] == 1
+
+
+def test_scene_sharded_scheduler_matches_per_scene_loop():
+    """A scene mesh over two devices (here both the CPU): max_batch is
+    rounded up to the device count, each micro-batch's scenes split
+    over the devices through `shard_over_scenes`, and the labels equal
+    `segment` of each scene alone."""
+    from repro_torch.distributed.sharding import make_scene_mesh
+    engine = mini_engine(64, 128)
+    mesh = make_scene_mesh(devices=["cpu", "cpu"])
+    sched = ServeScheduler(engine, max_batch=3, mesh=mesh)
+    assert sched.mesh is mesh and sched.max_batch == 4
+    scenes = [_scene_cf(5 + i, n) for i, n in enumerate([40, 90, 60, 120,
+                                                         50, 100])]
+    rids = [sched.submit(c, f, m) for (c, f, m) in scenes]
+    sched.flush()
+    by_rid = {r.rid: r for r in sched.drain()}
+    assert sorted(by_rid) == rids
+    for rid, (c, f, m) in zip(rids, scenes):
+        np.testing.assert_array_equal(by_rid[rid].preds, seg_preds(c, m, f))
+    stats = sched.stats()
+    assert stats["n_devices"] == 2 and stats["n_completed"] == 6
+    assert len(stats["buckets"]) == 2
 
 
 # ---------------------------------------------------------------------------

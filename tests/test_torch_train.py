@@ -307,8 +307,18 @@ def test_train_config_fields_and_sharding_guard(granite):
     for f in want - {"compute_dtype", "grad_reduce_dtype"}:
         assert getattr(port, f) == getattr(ref, f)
     assert port.compute_dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        STEP.make_train_step(granite[2], port, OPT.AdamWConfig(), sc=object())
+    # a sharding config is accepted; its placements follow the rules
+    from repro_torch.distributed import sharding as SH
+    sc = SH.ShardingConfig(SH.AbstractMesh((2, 4), ("data", "model")),
+                           fsdp=True)
+    assert callable(STEP.make_train_step(granite[2], port,
+                                         OPT.AdamWConfig(), sc=sc))
+    params = granite[3].tree()
+    p_specs, o_specs = STEP.train_step_shardings(params, sc)
+    assert p_specs == SH.params_shardings(params, sc) == o_specs.m == \
+        o_specs.v and o_specs.step == ()
+    assert p_specs["layers"]["sub0"]["mix"]["wq"]["w"] == \
+        (None, "data", "model")
 
 
 def test_bf16_step_with_grad_reduce_dtype_runs(granite):
