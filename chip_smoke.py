@@ -381,13 +381,41 @@ Phases (any failure exits non-zero; none catches its own):
      without a mesh (reduced granite): params bit-equal, start step 7.
      16g: `make_scene_mesh()` is None on one card; a scheduler's
      `n_devices` is 1 and `max_batch` unrounded.
-  17. a {"v1": ..., "train": {..., "trainer": ...}, "recurrent": ...,
-     "multimodal": ..., "sharding": ...} line,
+  17. the dry run (`repro_torch.launch.dryrun`).  17a: granite's train
+     step (phase 12's 4 x 512, bf16 compute, remat, AdamW), prefill
+     (phase 9's 8 x 512) and one decode step (8 rows over 1024 slots), each
+     as the dry run builds it (`dryrun.build_step`, with the cell's
+     `dryrun.cell_sharding` on a 1 x 1 ("data", "model") mesh, NCCL at
+     world 1): once on fake CUDA tensors (`dryrun.count_step`: no weight
+     allocated, the kernels reached through their ops' fake
+     implementations), once for real on the card (the same trees
+     zero-filled) under the same counter and cost mode, launch counts
+     zeroed just before and read just after, then once more uncounted and
+     timed (host clock around a synchronised call).  Gates: the counted
+     FLOPs of the two runs equal; the fake run's kernel-op calls equal to
+     the real launches and to 48 flash_attention, 216 grouped_matmul and
+     72 grouped_matmul_dw a train step, 24 + 72 a prefill, 24
+     flash_decode a decode step.  Printed: bytes and collective bytes of
+     both, the fake peak (`dryrun.step_mem_tracker`) beside
+     `max_memory_allocated` less what was allocated before the real
+     step's trees were built, with their ratio, and the roofline's compute and memory terms
+     (`launch/roofline.py`, the card's figures) beside the measured ms.
+     17b: `python -m repro_torch.launch.dryrun` on the card for
+     DRYRUN_CELLS (granite-moe train_4k on 16 x 16 and 2 x 16 x 16,
+     qwen2-vl-72b train_4k on 16 x 16, jamba-v0.1-52b long_500k,
+     mixtral-8x7b decode_32k; full depth and the depth-1 / depth-2 runs,
+     qwen2-vl full depth only, to keep the phase near two minutes), one
+     process each, all at once: every record printed, each must be "ok"
+     and every full-depth peak must fit the card.  The phase's wall
+     is printed.
+  18. a {"v1": ..., "train": {..., "trainer": ...}, "recurrent": ...,
+     "multimodal": ..., "sharding": ..., "dryrun": ...} line,
      a {"kernels": [...]} line (seven kernels; flash_attention,
      grouped_matmul and grouped_matmul_dw carry phase 13's counts as
      `trainer_launches`, and the four LM kernels phase 14's counts by path
      as `recurrent_launches`; flash_attention and flash_decode phase 15's
-     as `multimodal_launches`; flash_attention, flash_decode and
+     as `multimodal_launches`; the four LM kernels phase 17a's real
+     launches by cell as `dryrun_launches`; flash_attention, flash_decode and
      grouped_matmul carry phases 14 and 15's timed instances as
      `instances`), the nvidia-smi line, and last
      the {"ok": true, "device": {...}} line.
@@ -454,12 +482,6 @@ PN_SEG_GROUPS = (  # PointNet++(s) at PN_BATCH: (name, widths, rows) of its grou
     ("sa1", (3, 32, 32, 64), 131072), ("sa2", (67, 64, 64, 128), 32768),
     ("fp2.g0", (192, 128), 4096), ("fp2.g1", (128, 64), 4096),
     ("fp1", (64, 64, 64), 65536), ("head", (64, 64, 13), 65536))
-PEAKS = {  # (bytes/s, float32 non-tensor FLOP/s), NVIDIA data sheets
-    "sxm": (3.35e12, 67e12),
-    "pcie": (2.0e12, 51e12),
-}
-BF16_PEAKS = {"sxm": 989e12, "pcie": 756e12}  # dense bf16 tensor FLOP/s
-TF32_PEAKS = {"sxm": 494.7e12, "pcie": 378e12}  # dense TF32 tensor FLOP/s
 LM_ARCH = "granite-moe-1b-a400m"
 LM_BATCH, LM_PROMPT, LM_NEW, LM_MAX_LEN = 8, 512, 32, 1024
 LM_PLAIN_STEPS = 8           # decode steps of the kernel phase's plain run
@@ -505,6 +527,17 @@ SHARD_EP_TOKENS = (4, 512)    # 16c: the MoE input (B, S) at granite's width
 SHARD_PIPE = (4, 8, 512, 1024)  # 16d: bodies, then x (B, S, D)
 SHARD_TRAIN_TOL = 5e-2        # 16a: each updated leaf, of its max (bf16)
 SHARD_LOSS_TOL = 1e-4         # 16a: the loss, relative
+DRYRUN_CELLS = (  # phase 17b: (label, `launch.dryrun` flags), a process each
+    ("granite-moe-1b-a400m train_4k, 16 x 16 and 2 x 16 x 16",
+     ["--arch", LM_ARCH, "--shape", "train_4k", "--both-meshes"]),
+    ("qwen2-vl-72b train_4k, 16 x 16, full depth only",
+     ["--arch", "qwen2-vl-72b", "--shape", "train_4k", "--no-cost"]),
+    ("jamba-v0.1-52b long_500k, 16 x 16",
+     ["--arch", "jamba-v0.1-52b", "--shape", "long_500k"]),
+    ("mixtral-8x7b decode_32k, 16 x 16",
+     ["--arch", "mixtral-8x7b", "--shape", "decode_32k"]),
+)
+DRYRUN_TIMEOUT_S = 360        # 17b: all the processes together
 QWEN_BATCH, QWEN_GRID, QWEN_TEXT, QWEN_NEW = 2, 16, 768, 16
 SEAMLESS_BATCH, SEAMLESS_ENC, SEAMLESS_NEW = 4, 1024, 32   # 15b
 
@@ -4719,6 +4752,189 @@ def sharding_phase(dev, module) -> dict:
     return out
 
 
+def dryrun_real(cfg, shape, sc, dev):
+    """17a: the dry run's step of `cfg` at `shape` (`dryrun.build_step`,
+    its trees zero-filled) on real tensors on the card, run once under the
+    dry run's counter and cost mode with the launch counts zeroed just
+    before and read just after, then once more uncounted and timed.
+    Returns (the counter's totals, the launches, the peak bytes the step
+    and its trees took, ms)."""
+    import torch
+    from repro_torch import costmode
+    from repro_torch.launch import dryrun as D
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)   # earlier phases' leftovers
+    call, held = D.build_step(cfg, shape, sc, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_lm_launches()
+    with costmode.enable(), D.CostCounter() as counter:
+        call()
+    torch.cuda.synchronize()
+    launches = lm_launches()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    t0 = time.perf_counter()
+    with costmode.enable():
+        call()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    del call, held
+    return counter.totals(), launches, peak, ms
+
+
+def dryrun_held_to_real(dev, hw) -> dict:
+    """17a: granite's train step (phase 12's 4 x 512), prefill (phase 9's
+    8 x 512) and one decode step (8 over 1024 slots) on fake tensors on a
+    1 x 1 "cuda" mesh, counted by the dry run, against the same steps run
+    for real on the card (see the module docstring)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch import costmode
+    from repro_torch.configs import get as get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import roofline as RL
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.shapes import ShapeSpec
+    cfg = get_config(LM_ARCH)
+    n = cfg.n_layers
+    cells = (
+        ("train", ShapeSpec("train", "train", TRAIN_SEQ, TRAIN_BATCH),
+         {"flash_attention": 2 * n, "grouped_matmul": 9 * n,
+          "grouped_matmul_dw": 3 * n}),
+        ("prefill", ShapeSpec("prefill", "prefill", LM_PROMPT, LM_BATCH),
+         {"flash_attention": n, "grouped_matmul": 3 * n}),
+        ("decode", ShapeSpec("decode", "decode", LM_MAX_LEN, LM_BATCH),
+         {"flash_decode": n}))
+    n_p = D.n_params(D.param_meta(cfg))
+    torch.cuda.set_device(dev.index or 0)
+    tmp = tempfile.mkdtemp(dir=ROOT / "build")
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous",
+                            rank=0, world_size=1)
+    out = {}
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        for label, shape, want in cells:
+            sc = D.cell_sharding(mesh, shape, n_p)
+            with costmode.enable():
+                fake = D.count_step(cfg, shape, sc, dev)
+            real, launches, peak, ms = dryrun_real(cfg, shape, sc, dev)
+            gc.collect()
+            torch.cuda.empty_cache()
+            real_calls = {k: launches.get(k, 0) for k in
+                          ("flash_attention", "grouped_matmul",
+                           "grouped_matmul_dw", "flash_decode")
+                          if launches.get(k, 0)}
+            coll = sum(fake.coll.values())
+            terms = RL.CellCost(fake.flops, fake.bytes, coll,
+                                fake.coll).terms(None, hw)
+            row = {"fake_flops": fake.flops, "real_flops": real["flops"],
+                   "fake_bytes": fake.bytes, "real_bytes": real["bytes"],
+                   "fake_coll_bytes": coll,
+                   "real_coll_bytes": sum(real["coll"].values()),
+                   "fake_calls": fake.kernel_calls,
+                   "real_counted_calls": real["kernel_calls"],
+                   "real_launches": real_calls,
+                   "fake_peak_bytes": fake.peak_bytes,
+                   "real_peak_bytes": peak,
+                   "peak_ratio": fake.peak_bytes / peak,
+                   "compute_ms": terms["compute_s"] * 1e3,
+                   "memory_ms": terms["memory_s"] * 1e3,
+                   "measured_ms": ms, "fake_s": fake.seconds}
+            out[label] = row
+            print(f"dryrun 17a: {label} {shape.batch} x {shape.seq}: "
+                  f"FLOPs fake {fake.flops:.6g} real {real['flops']:.6g}; "
+                  f"bytes fake {fake.bytes:.6g} real {real['bytes']:.6g}; "
+                  f"collective bytes fake {coll:.6g} real "
+                  f"{row['real_coll_bytes']:.6g}; kernel calls fake "
+                  f"{fake.kernel_calls}, real launches {real_calls}; peak "
+                  f"fake {fake.peak_bytes / 2**30:.3f} GiB, real "
+                  f"{peak / 2**30:.3f} GiB (ratio {row['peak_ratio']:.4f}); "
+                  f"roofline compute {row['compute_ms']:.4f} ms, memory "
+                  f"{row['memory_ms']:.4f} ms ({hw.name}), measured "
+                  f"{ms:.2f} ms; fake run {fake.seconds:.1f} s  "
+                  f"[{smi_line()}]")
+            if fake.flops != real["flops"]:
+                raise AssertionError(f"17a {label}: counted FLOPs fake "
+                                     f"{fake.flops} != real {real['flops']}")
+            if fake.kernel_calls != want or real_calls != want or \
+                    real["kernel_calls"] != want:
+                raise AssertionError(
+                    f"17a {label}: kernel calls fake {fake.kernel_calls}, "
+                    f"real launches {real_calls}, counted on the card "
+                    f"{real['kernel_calls']}; expected {want}")
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def dryrun_production(dev) -> dict:
+    """17b: `python -m repro_torch.launch.dryrun` on the production meshes
+    for DRYRUN_CELLS, one process each, all at once; every record printed,
+    each must be "ok" and the full-depth ones must fit the card."""
+    import os
+    import shutil
+    out_dir = ROOT / "build" / "dryrun_smoke"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    env = dict(os.environ, PYTHONUNBUFFERED="1",
+               PYTHONPATH=os.pathsep.join(
+                   [str(ROOT / "src")] + ([os.environ["PYTHONPATH"]]
+                                           if os.environ.get("PYTHONPATH")
+                                           else [])))
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        for i, (label, flags) in enumerate(DRYRUN_CELLS):
+            path = out_dir / f"cell{i}.json"
+            procs.append((label, path, subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", *flags,
+                 "--out", str(path)], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True, env=env,
+                cwd=str(ROOT))))
+        end = time.monotonic() + DRYRUN_TIMEOUT_S
+        texts = [p.communicate(timeout=max(1.0, end - time.monotonic()))[0]
+                 for _, _, p in procs]
+    finally:
+        for _, _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    records = []
+    for (label, path, p), text in zip(procs, texts):
+        if p.returncode != 0 or not path.exists():
+            print(text[-6000:])
+            raise AssertionError(f"17b {label}: the dry run exited "
+                                 f"{p.returncode}")
+        for rec in json.loads(path.read_text()):
+            print(f"dryrun 17b: {label}: "
+                  f"{json.dumps({k: v for k, v in rec.items() if k != 'traceback'})}")
+            if rec["status"] != "ok" or rec.get("fits") is False:
+                raise AssertionError(f"17b {label}: {rec['status']} "
+                                     f"{rec.get('error', '')} fits "
+                                     f"{rec.get('fits')}")
+            records.append(rec)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    print(f"dryrun 17b: {len(records)} records ok in {wall:.1f} s wall")
+    return {"wall_s": wall, "records": records}
+
+
+def dryrun_phase(dev, hw) -> dict:
+    """Phase 17: the dry run held to real steps (17a), then on the
+    production meshes (17b)."""
+    import torch
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"held_to_real": dryrun_held_to_real(dev, hw)}
+    out["production"] = dryrun_production(dev)
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"phase 17 (dry run): {out['wall_s']:.1f} s wall")
+    return out
+
+
 def lm_paths_build_report(libs, n_sm: int) -> None:
     """Phase 2, for phases 14 and 15: HGMMA, registers and spills of the
     flash_attention_wgmma instances that jamba (head_dim 128, G 4), gemma2
@@ -4786,7 +5002,10 @@ def main(argv) -> int:
     print(smi)
     print(f"device: {name}  count={torch.cuda.device_count()}  torch "
           f"{torch.__version__} cuda {torch.version.cuda}")
-    mem_rate, flop_rate = PEAKS["pcie" if "PCIe" in name else "sxm"]
+    # the card's peaks (NVIDIA data sheets), kept in launch/roofline.py
+    from repro_torch.launch.roofline import hardware
+    hw = hardware(name)
+    mem_rate, flop_rate = hw.hbm_bw, hw.fma_flops
 
     # 2. build
     t0 = time.perf_counter()
@@ -4935,7 +5154,7 @@ def main(argv) -> int:
         raise AssertionError(f"{len(sites)} conv sites recorded, "
                              f"{len(names)} named; expected 41")
 
-    tf32_rate = TF32_PEAKS["pcie" if "PCIe" in name else "sxm"]
+    tf32_rate = hw.tf32_flops
     print(f"kernel phase: {len(sites)} conv sites of one forward, tol "
           f"atol=rtol={TOL:g}; kernel times in ms as device time a call "
           f"({REPS} calls in one CUDA graph), plain and gemm-only with CUDA "
@@ -5190,7 +5409,7 @@ def main(argv) -> int:
 
     point_launches, mlp = point_phases(dev, mem_rate, flop_rate, tf32_rate,
                                        "--profile" in argv)
-    bf16_rate = BF16_PEAKS["pcie" if "PCIe" in name else "sxm"]
+    bf16_rate = hw.peak_flops
     lm_kernels = lm_phases(dev, mem_rate, bf16_rate, "--profile" in argv)
     # 12. the train step
     print(smi_line())
@@ -5242,7 +5461,11 @@ def main(argv) -> int:
     # 16. the sharded entry points on one card
     sharding = sharding_phase(dev, module)
 
-    # 17. result lines
+    # 17. the dry run, held to real steps and on the production meshes
+    print(smi_line())
+    dryrun = dryrun_phase(dev, hw)
+
+    # 18. result lines
     src = "src/repro_torch/kernels/spconv/csrc/spconv_tc.cu"
     plans = {f"level {lv}": sorted(d["plans"]) for lv, d in
              sorted(by_level.items())}
@@ -5349,6 +5572,11 @@ def main(argv) -> int:
             entry["multimodal_launches"] = by_path(kname, mm_paths)
         if kname in instances:
             entry["instances"] = instances[kname]
+        if kname in ("flash_attention", "grouped_matmul", "flash_decode",
+                     "grouped_matmul_dw"):
+            entry["dryrun_launches"] = {
+                cell: row["real_launches"].get(kname, 0)
+                for cell, row in dryrun["held_to_real"].items()}
         if entry["name"] in ("flash_attention", "grouped_matmul",
                              "grouped_matmul_dw"):
             entry["trainer_launches"] = {
@@ -5369,7 +5597,8 @@ def main(argv) -> int:
                           **{arch: {k: v for k, v in multimodal[arch].items()
                                     if k != "instances"}
                              for arch in ("qwen2vl", "seamless")}},
-                      "sharding": sharding}))
+                      "sharding": sharding,
+                      "dryrun": dryrun}))
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -122,13 +122,15 @@ def main() -> int:
         return 2
     from repro_torch.kernels.grouped_matmul import grouped_matmul as GM
     from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_dw_ref
+    from repro_torch.launch.roofline import hardware
     print(CS.smi_line())
     with ThreadPoolExecutor(len(VARIANTS)) as pool:
         libs = dict(zip(VARIANTS, pool.map(
             lambda kv: build_variant(kv[0], kv[1][0]), VARIANTS.items())))
     dev = torch.device("cuda")
     l2 = torch.cuda.get_device_properties(dev).L2_cache_size
-    mem_rate, _ = CS.PEAKS["sxm"]
+    hw = hardware(torch.cuda.get_device_name(dev))
+    mem_rate = hw.hbm_bw
     gen = torch.Generator(device=dev).manual_seed(0)
     cap = ROWS // EXPERTS
     eid = torch.arange(EXPERTS, dtype=torch.int32, device=dev) \
@@ -154,7 +156,7 @@ def main() -> int:
         nbytes = 2 * (x.numel() + dy.numel() + EXPERTS * cin * cout) \
             + 4 * eid.numel()
         bound = max(nbytes / mem_rate, 2.0 * ROWS * cin * cout /
-                    CS.BF16_PEAKS["sxm"]) * 1e3
+                    hw.peak_flops) * 1e3
         copies = CS.cold_copies((x, dy, eid), nbytes, l2)
         names = list(calls)
         order = names + names[::-1]

@@ -156,6 +156,27 @@ class Shard(NamedTuple):
         return constrain(x, activation_spec(self.sc, tuple(x.shape), names),
                          self.sc.mesh)
 
+    def local(self, fn, args, names, out_names, sizes: dict):
+        """`fn(*args)` -> a tuple of tensors, under the config on each
+        rank's local shards (`local_call`); without one, fn(*args).  The
+        dims of each argument and output are named: "batch" splits over
+        the data axes and "d_inner" over "model" where `sizes` of that
+        name divides them, every other dim stays whole (a scan needs its
+        whole sequence).  An argument replicated along an axis that splits
+        the work takes its gradient there as a partial sum."""
+        if self.sc is None:
+            return fn(*args)
+        sc = self.sc
+        on = {"batch": _maybe(sc.axes, sizes.get("batch"), sc.data_spec),
+              "d_inner": _maybe(sc.axes, sizes.get("d_inner"), "model")}
+
+        def spec(dims):
+            return tuple(on.get(n) for n in dims)
+        return tuple(local_call(
+            fn, args, [spec(n) for n in names], [spec(n) for n in out_names],
+            sc.mesh, grad_partial=axis_names(on["batch"]) +
+            axis_names(on["d_inner"])))
+
 
 identity_shard = Shard()
 
@@ -364,12 +385,20 @@ def constrain(x, spec: Spec, mesh):
     if not isinstance(x, DTensor):
         x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
                                run_check=False)
-    elif any(p.is_partial() for p in x.placements):
-        x = x.redistribute(mesh, [Replicate() if p.is_partial() else p
-                                  for p in x.placements])
+    x = reduced(x)
     if tuple(x.placements) != tuple(target):
         x = x.redistribute(mesh, target)
     return x
+
+
+def reduced(x):
+    """x with its pending partial sums reduced (those mesh dims
+    replicated); a plain tensor, or a DTensor with none, passes through."""
+    if not is_dtensor(x) or not any(p.is_partial() for p in x.placements):
+        return x
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(x.device_mesh, [Replicate() if p.is_partial()
+                                          else p for p in x.placements])
 
 
 def distribute(tree, specs, mesh):
@@ -399,11 +428,11 @@ def local_call(fn: Callable, args, in_specs, out_specs, mesh,
     `shard_map`: every tensor argument is redistributed to its spec
     (`None` for an argument that is not a tensor), `fn` sees plain local
     tensors, and its outputs (one spec each in a list, or one spec for a
-    single output) come back as DTensors.  Differentiable: the gradient of an input
-    is sharded as the input; over the mesh axes in `grad_partial`, along
-    which `fn` does a different share of the work on each rank (its
-    tokens are split there), the gradient of an input replicated along
-    them is a partial sum."""
+    single output) come back as DTensors.  Differentiable: the gradient of
+    an input is sharded as the input; over the mesh axes in
+    `grad_partial`, along which `fn` does a different share of the work
+    on each rank (its tokens are split there), the gradient of an input
+    replicated along them is a partial sum."""
     from torch.distributed.tensor import Partial
     from torch.distributed.tensor.experimental import local_map
     single = not isinstance(out_specs, list)
@@ -450,6 +479,41 @@ def unshard_dim(x, dim: int, n: int):
                                  for m, p in enumerate(x.placements)])
 
 
+def gather_dim(x, dim: int):
+    """x with dim `dim` replicated over every mesh dim that shards it (a
+    plain tensor, or a DTensor not sharded there, passes through)."""
+    if not is_dtensor(x) or not any(p.is_shard(dim) for p in x.placements):
+        return x
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(x.device_mesh, [Replicate() if p.is_shard(dim)
+                                          else p for p in x.placements])
+
+
+class _GatheredGrad(torch.autograd.Function):
+    """Identity forward; the gradient gathered along `dim` (with `n`, only
+    where its shards do not divide n: `unshard_dim`)."""
+
+    @staticmethod
+    def forward(ctx, y, dim, n):
+        ctx.dim, ctx.n = dim, n
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.n is None:
+            return gather_dim(g, ctx.dim), None, None
+        return unshard_dim(g, ctx.dim, ctx.n), None, None
+
+
+def gathered_grad(y, dim: int, n: Optional[int] = None):
+    """y, whose gradient comes back with dim `dim` replicated (a DTensor's
+    `gather_dim`); with `n`, only when it is split into a number of shards
+    that does not divide n (`unshard_dim`: a gradient whose shards would
+    cut the n heads a view splits the dim into).  A plain y passes
+    through."""
+    return _GatheredGrad.apply(y, dim, n) if is_dtensor(y) else y
+
+
 def full(x):
     """The global value of a DTensor (a plain tensor passes through)."""
     return x.full_tensor() if is_dtensor(x) else x
@@ -483,11 +547,17 @@ def write_rows(cache, slot, rows):
     local = cache.to_local()
     ob, os_, *rest = local_offsets(cache)
     nb, ns = local.shape[0], local.shape[1]
-    keep = (b_all >= ob) & (b_all < ob + nb) & (slot >= os_) & \
-        (slot < os_ + ns)
+    # the shard's batch rows are a fixed range; whether a row's slot lies in
+    # the shard is a device value, so a row whose slot does not writes back
+    # what its (clamped) slot holds: no shape depends on the data, and each
+    # row writes one place
     idx = tuple(slice(o, o + n) for o, n in zip(rest, local.shape[2:]))
-    sel = rows[(keep,) + idx]
-    local[b_all[keep] - ob, slot[keep] - os_] = sel
+    mine = rows[(slice(ob, ob + nb),) + idx].to(local.dtype)
+    at = slot[ob:ob + nb] - os_
+    keep = ((at >= 0) & (at < ns)).reshape((-1,) + (1,) * (mine.dim() - 1))
+    at = at.clamp(0, ns - 1)
+    b_loc = b_all[:nb]
+    local[b_loc, at] = torch.where(keep, mine, local[b_loc, at])
 
 
 def write_into(dst, src):

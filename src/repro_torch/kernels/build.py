@@ -9,6 +9,14 @@ shared library with a plain C interface:
 All sources build at once, one `nvcc` each, into
 `build/repro_torch_kernels/<hash of the sources>/` at the repository root,
 and load with `ctypes`.  A missing `nvcc` raises: there is no fallback.
+
+The LM kernels are also dispatcher ops (`define_op`): `repro_torch::
+flash_attention`, `flash_decode`, `grouped_matmul` and `grouped_matmul_dw`,
+each with its launch as the CUDA implementation, a fake implementation
+(the output's shape and dtype, for `FakeTensorMode`) and a FLOP formula
+(`FlopCounterMode` and the dry run's counter read it).  Their byte count
+is each operand read once plus the output written once: the dry run's
+rule for every op (`launch/dryrun.py`).
 """
 
 from __future__ import annotations
@@ -27,6 +35,8 @@ PKG_DIR = Path(__file__).resolve().parent
 BUILD_ROOT = PKG_DIR.parents[2] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+LIB = torch.library.Library("repro_torch", "DEF")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -114,3 +124,19 @@ def device_operand(t: torch.Tensor, what: str, device) -> int:
     if not t.is_contiguous():
         raise ValueError(f"{what} must be contiguous")
     return t.data_ptr()
+
+
+def define_op(schema: str, cuda, fake, flops):
+    """Define `repro_torch::<schema>` with `cuda` as its CUDA kernel (a
+    Python launch), `fake` as its fake implementation and `flops(*shapes,
+    out_shape)` as its FLOP formula; returns the op's default overload.
+    The dispatcher is entered only for CUDA (and fake) tensors: a wrapper
+    takes the plain version of a CPU tensor before it calls the op."""
+    from repro_torch import compat
+    name = schema.split("(", 1)[0]
+    LIB.define(schema)
+    LIB.impl(name, cuda, "CUDA")
+    torch.library.register_fake(f"repro_torch::{name}", fake, lib=LIB)
+    packet = getattr(torch.ops.repro_torch, name)
+    compat.register_flop_formula(packet)(flops)
+    return packet.default

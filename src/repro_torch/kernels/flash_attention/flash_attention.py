@@ -18,11 +18,18 @@ on the current stream, or raises; the output is allocated here and nothing
 synchronises.  Unlike the Pallas kernel, Sq and Skv need not be multiples
 of a block: the kernels mask the ragged edges.  `LAUNCHES` counts kernel
 launches: "flash_attention" every one, and one count per variant.
+
+A CUDA call goes through the dispatcher op `repro_torch::flash_attention`
+(`kernels/build.define_op`): its CUDA implementation picks the variant and
+launches; on fake tensors its fake implementation gives the output's
+shape and dtype, and its FLOP formula counts the (query, key) pairs the
+causal mask and the window keep (`attention_flops`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from collections.abc import Sequence
 
@@ -127,6 +134,57 @@ def _launch(kind, q, k, v, causal, window, softcap, scale):
     return out
 
 
+def _cuda(q, k, v, causal, window, softcap, scale, kind):
+    """The op's CUDA implementation: "auto" launches the kernel `variant`
+    picks, "wgmma" the tensor-core kernel (raising where `variant` would
+    not pick it), "fma" the FMA kernel."""
+    chosen = _variant_of(q, k, v)
+    if kind == "wgmma" and chosen != "wgmma":
+        raise ValueError(f"the tensor-core kernel takes bf16 with head_dim in "
+                         f"{WGMMA_HEAD_DIMS}, G in {WGMMA_GROUPS} and 16-byte "
+                         f"aligned operands; got {q.dtype}, head_dim "
+                         f"{q.shape[3]}, G {q.shape[1] // k.shape[1]}")
+    return _launch(chosen if kind == "auto" else kind, q, k, v, causal,
+                   window, softcap, scale)
+
+
+def _fake(q, k, v, causal, window, softcap, scale, kind):
+    return torch.empty_like(q)
+
+
+@functools.lru_cache(maxsize=256)
+def kept_pairs(sq: int, skv: int, causal: bool, window: int | None) -> int:
+    """(query, key) pairs the mask keeps for one head: key j of query i
+    where j <= i (causal) and i - j < window (windowed), as `ref._logits`
+    masks them."""
+    total = 0
+    for i in range(sq):
+        hi = min(i, skv - 1) if causal else skv - 1
+        lo = max(0, i - window + 1) if window is not None else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def attention_flops(q, k, v, causal, window, softcap, scale, kind,
+                    out_shape=None) -> int:
+    """FLOPs of one call from the operands' shapes: QK^T and PV over the
+    kept pairs, 2 x 2 x D a pair and query head."""
+    b, hq, sq, d = q
+    return 4 * b * hq * d * kept_pairs(sq, k[2], bool(causal), window)
+
+
+_OP = build.define_op(
+    "flash_attention(Tensor q, Tensor k, Tensor v, bool causal, int? window, "
+    "float? softcap, float? scale, str kind) -> Tensor",
+    _cuda, _fake, attention_flops)
+
+
+def _call(q, k, v, causal, window, softcap, scale, kind):
+    return _OP(q, k, v, bool(causal), window,
+               None if softcap is None else float(softcap),
+               None if scale is None else float(scale), kind)
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool = True, window: int | None = None,
                          softcap: float | None = None,
@@ -137,8 +195,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
                              softcap=softcap, scale=scale)
-    return _launch(_variant_of(q, k, v), q, k, v, causal, window, softcap,
-                   scale)
+    return _call(q, k, v, causal, window, softcap, scale, "auto")
 
 
 def flash_attention_wgmma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -151,12 +208,7 @@ def flash_attention_wgmma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
                              softcap=softcap, scale=scale)
-    if _variant_of(q, k, v) != "wgmma":
-        raise ValueError(f"the tensor-core kernel takes bf16 with head_dim in "
-                         f"{WGMMA_HEAD_DIMS}, G in {WGMMA_GROUPS} and 16-byte "
-                         f"aligned operands; got {q.dtype}, head_dim "
-                         f"{q.shape[3]}, G {q.shape[1] // k.shape[1]}")
-    return _launch("wgmma", q, k, v, causal, window, softcap, scale)
+    return _call(q, k, v, causal, window, softcap, scale, "wgmma")
 
 
 def flash_attention_fma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -169,4 +221,4 @@ def flash_attention_fma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
                              softcap=softcap, scale=scale)
-    return _launch("fma", q, k, v, causal, window, softcap, scale)
+    return _call(q, k, v, causal, window, softcap, scale, "fma")

@@ -12,6 +12,14 @@ pointers and the SM count (`plan_launch`), never from the values in
 valid prefix over `n_split` CTAs of one cluster and reads no slot at or past
 `lengths[b]`, so the cache is not padded and the call can be replayed in a
 CUDA graph with new lengths.  `LAUNCHES` counts kernel launches: one a call.
+
+A CUDA call goes through the dispatcher op `repro_torch::flash_decode`
+(`kernels/build.define_op`): its CUDA implementation plans and launches;
+on fake tensors its fake implementation gives the output's shape and
+dtype.  Its FLOP formula counts every cache slot, 2 x 2 x hd a slot and
+query head: the work at a full cache, which a decode cell of S slots
+stands for (the lengths are device values; the kernel reads only the
+first lengths[b]).
 """
 
 from __future__ import annotations
@@ -154,18 +162,8 @@ def _check(q, k, v, lengths, softcap):
         raise ValueError(f"softcap must be > 0, got {softcap}")
 
 
-def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      lengths: torch.Tensor, *, softcap: float | None = None,
-                      scale: float | None = None,
-                      n_split: int | None = None) -> torch.Tensor:
-    """One token's attention over the first `lengths[b]` cache slots ->
-    (B, Hq, hd) in q's dtype (float32 math); zeros where `lengths[b]` is
-    0, on either device.  `n_split` overrides `plan_splits` (1..8) on the
-    card."""
-    _check(q, k, v, lengths, softcap)
-    if q.device.type == "cpu":
-        return flash_decode_ref(q, k, v, lengths, softcap=softcap,
-                                scale=scale)
+def _cuda(q, k, v, lengths, softcap, scale, n_split):
+    """The op's CUDA implementation: plan the launch and launch."""
     if q.device.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got {q.device}")
     if lengths.dtype != torch.int32:
@@ -189,3 +187,37 @@ def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_decode kernel launch failed: CUDA error {err}")
     LAUNCHES["flash_decode"] += 1
     return out
+
+
+def _fake(q, k, v, lengths, softcap, scale, n_split):
+    return torch.empty_like(q)
+
+
+def decode_flops(q, k, v, lengths, softcap, scale, n_split,
+                 out_shape=None) -> int:
+    """QK^T and PV over every one of the cache's S slots: 4 x B x Hq x S x
+    hd."""
+    b, hq, hd = q
+    return 4 * b * hq * k[1] * hd
+
+
+_OP = build.define_op(
+    "flash_decode(Tensor q, Tensor k, Tensor v, Tensor lengths, "
+    "float? softcap, float? scale, int? n_split) -> Tensor",
+    _cuda, _fake, decode_flops)
+
+
+def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      lengths: torch.Tensor, *, softcap: float | None = None,
+                      scale: float | None = None,
+                      n_split: int | None = None) -> torch.Tensor:
+    """One token's attention over the first `lengths[b]` cache slots ->
+    (B, Hq, hd) in q's dtype (float32 math); zeros where `lengths[b]` is
+    0, on either device.  `n_split` overrides `plan_splits` (1..8) on the
+    card."""
+    _check(q, k, v, lengths, softcap)
+    if q.device.type == "cpu":
+        return flash_decode_ref(q, k, v, lengths, softcap=softcap,
+                                scale=scale)
+    return _OP(q, k, v, lengths, None if softcap is None else float(softcap),
+               None if scale is None else float(scale), n_split)

@@ -36,6 +36,14 @@ forward kernels (dX's too), one count per variant, "grouped_matmul_dx"
 the dX launches among them, and "grouped_matmul_dw" the weight-gradient
 kernels', one count per variant ("grouped_matmul_dw_wgmma" /
 "grouped_matmul_dw_fma").
+
+A CUDA call goes through a dispatcher op (`kernels/build.define_op`):
+`repro_torch::grouped_matmul` (the forward and dX, `dx` marking dX's
+launches) and `repro_torch::grouped_matmul_dw`.  Their CUDA
+implementations pick the variant and launch; on fake tensors the fake
+implementations give the output's shape and dtype, and the FLOP formula
+counts what the kernel computes, 2 x R x Cin x Cout over every row tile
+(padding rows included).
 """
 
 from __future__ import annotations
@@ -154,6 +162,35 @@ def _launch(kind, x, tile_eid, weights, row_tile, dx=False):
     return out
 
 
+def _cuda(x, tile_eid, weights, row_tile, dx, kind):
+    """The forward op's CUDA implementation: "auto" launches the kernel
+    `variant` picks, "wgmma" the tensor-core kernel (raising where
+    `variant` would not pick it), "fma" the FMA kernel."""
+    chosen = variant(x.dtype, x.shape[1], weights.shape[2], row_tile)
+    if kind == "wgmma" and chosen != "wgmma":
+        raise ValueError(f"the tensor-core kernel takes bf16 with Cin, Cout "
+                         f"multiples of 8 and row tiles of a multiple of "
+                         f"{WGMMA_ROWS_PER_CTA}; got {x.dtype}, "
+                         f"{x.shape[1]} -> {weights.shape[2]}, {row_tile}")
+    return _launch(chosen if kind == "auto" else kind, x, tile_eid, weights,
+                   row_tile, dx=dx)
+
+
+def _fake(x, tile_eid, weights, row_tile, dx, kind):
+    return x.new_empty((x.shape[0], weights.shape[2]))
+
+
+def matmul_flops(x, tile_eid, weights, row_tile, dx, kind,
+                 out_shape=None) -> int:
+    """2 x R x Cin x Cout: every row tile against its expert's weights."""
+    return 2 * x[0] * x[1] * weights[2]
+
+
+_OP = build.define_op(
+    "grouped_matmul(Tensor x, Tensor tile_eid, Tensor weights, int row_tile, "
+    "bool dx, str kind) -> Tensor", _cuda, _fake, matmul_flops)
+
+
 def grouped_matmul_cuda(x: torch.Tensor, tile_eid: torch.Tensor,
                         weights: torch.Tensor,
                         row_tile: int = 128) -> torch.Tensor:
@@ -162,8 +199,7 @@ def grouped_matmul_cuda(x: torch.Tensor, tile_eid: torch.Tensor,
     _check(x, tile_eid, weights, row_tile)
     if x.device.type == "cpu":
         return grouped_matmul_ref(x, tile_eid, weights, row_tile)
-    kind = variant(x.dtype, x.shape[1], weights.shape[2], row_tile)
-    return _launch(kind, x, tile_eid, weights, row_tile)
+    return _OP(x, tile_eid, weights, row_tile, False, "auto")
 
 
 def grouped_matmul_wgmma(x: torch.Tensor, tile_eid: torch.Tensor,
@@ -174,12 +210,7 @@ def grouped_matmul_wgmma(x: torch.Tensor, tile_eid: torch.Tensor,
     _check(x, tile_eid, weights, row_tile)
     if x.device.type == "cpu":
         return grouped_matmul_ref(x, tile_eid, weights, row_tile)
-    if variant(x.dtype, x.shape[1], weights.shape[2], row_tile) != "wgmma":
-        raise ValueError(f"the tensor-core kernel takes bf16 with Cin, Cout "
-                         f"multiples of 8 and row tiles of a multiple of "
-                         f"{WGMMA_ROWS_PER_CTA}; got {x.dtype}, "
-                         f"{x.shape[1]} -> {weights.shape[2]}, {row_tile}")
-    return _launch("wgmma", x, tile_eid, weights, row_tile)
+    return _OP(x, tile_eid, weights, row_tile, False, "wgmma")
 
 
 def grouped_matmul_fma(x: torch.Tensor, tile_eid: torch.Tensor,
@@ -190,7 +221,7 @@ def grouped_matmul_fma(x: torch.Tensor, tile_eid: torch.Tensor,
     _check(x, tile_eid, weights, row_tile)
     if x.device.type == "cpu":
         return grouped_matmul_ref(x, tile_eid, weights, row_tile)
-    return _launch("fma", x, tile_eid, weights, row_tile)
+    return _OP(x, tile_eid, weights, row_tile, False, "fma")
 
 
 def grouped_matmul_dx_cuda(dy: torch.Tensor, tile_eid: torch.Tensor,
@@ -203,8 +234,7 @@ def grouped_matmul_dx_cuda(dy: torch.Tensor, tile_eid: torch.Tensor,
     _check(dy, tile_eid, w_t, row_tile)
     if dy.device.type == "cpu":
         return grouped_matmul_ref(dy, tile_eid, w_t, row_tile)
-    kind = variant(dy.dtype, dy.shape[1], w_t.shape[2], row_tile)
-    return _launch(kind, dy, tile_eid, w_t, row_tile, dx=True)
+    return _OP(dy, tile_eid, w_t, row_tile, True, "auto")
 
 
 def _check_dw(x, dy, tile_eid, n_experts, row_tile):
@@ -256,6 +286,35 @@ def _launch_dw(kind, x, dy, tile_eid, n_experts, row_tile):
     return out
 
 
+def _cuda_dw(x, dy, tile_eid, n_experts, row_tile, kind):
+    """The weight-gradient op's CUDA implementation: "auto" launches the
+    kernel `dw_variant` picks, "wgmma" the tensor-core kernel (raising
+    where `dw_variant` would not pick it), "fma" the FMA kernel."""
+    chosen = dw_variant(x.dtype, x.shape[1], dy.shape[1], row_tile)
+    if kind == "wgmma" and chosen != "wgmma":
+        raise ValueError(f"the tensor-core weight-gradient kernel takes bf16 "
+                         f"with Cin, Cout multiples of 8 and row tiles of a "
+                         f"multiple of {DW_WGMMA_K_STEP}; got {x.dtype}, "
+                         f"{x.shape[1]} -> {dy.shape[1]}, {row_tile}")
+    return _launch_dw(chosen if kind == "auto" else kind, x, dy, tile_eid,
+                      n_experts, row_tile)
+
+
+def _fake_dw(x, dy, tile_eid, n_experts, row_tile, kind):
+    return x.new_empty((n_experts, x.shape[1], dy.shape[1]))
+
+
+def dw_flops(x, dy, tile_eid, n_experts, row_tile, kind,
+             out_shape=None) -> int:
+    """2 x R x Cin x Cout: every row's x_i^T dY_i, summed per expert."""
+    return 2 * x[0] * x[1] * dy[1]
+
+
+_OP_DW = build.define_op(
+    "grouped_matmul_dw(Tensor x, Tensor dy, Tensor tile_eid, int n_experts, "
+    "int row_tile, str kind) -> Tensor", _cuda_dw, _fake_dw, dw_flops)
+
+
 def grouped_matmul_dw_cuda(x: torch.Tensor, dy: torch.Tensor,
                            tile_eid: torch.Tensor, n_experts: int,
                            row_tile: int = 128) -> torch.Tensor:
@@ -267,8 +326,7 @@ def grouped_matmul_dw_cuda(x: torch.Tensor, dy: torch.Tensor,
     _check_dw(x, dy, tile_eid, n_experts, row_tile)
     if x.device.type == "cpu":
         return grouped_matmul_dw_ref(x, dy, tile_eid, n_experts, row_tile)
-    kind = dw_variant(x.dtype, x.shape[1], dy.shape[1], row_tile)
-    return _launch_dw(kind, x, dy, tile_eid, n_experts, row_tile)
+    return _OP_DW(x, dy, tile_eid, n_experts, row_tile, "auto")
 
 
 def grouped_matmul_dw_wgmma(x: torch.Tensor, dy: torch.Tensor,
@@ -279,12 +337,7 @@ def grouped_matmul_dw_wgmma(x: torch.Tensor, dy: torch.Tensor,
     _check_dw(x, dy, tile_eid, n_experts, row_tile)
     if x.device.type == "cpu":
         return grouped_matmul_dw_ref(x, dy, tile_eid, n_experts, row_tile)
-    if dw_variant(x.dtype, x.shape[1], dy.shape[1], row_tile) != "wgmma":
-        raise ValueError(f"the tensor-core weight-gradient kernel takes bf16 "
-                         f"with Cin, Cout multiples of 8 and row tiles of a "
-                         f"multiple of {DW_WGMMA_K_STEP}; got {x.dtype}, "
-                         f"{x.shape[1]} -> {dy.shape[1]}, {row_tile}")
-    return _launch_dw("wgmma", x, dy, tile_eid, n_experts, row_tile)
+    return _OP_DW(x, dy, tile_eid, n_experts, row_tile, "wgmma")
 
 
 def grouped_matmul_dw_fma(x: torch.Tensor, dy: torch.Tensor,
@@ -295,4 +348,4 @@ def grouped_matmul_dw_fma(x: torch.Tensor, dy: torch.Tensor,
     _check_dw(x, dy, tile_eid, n_experts, row_tile)
     if x.device.type == "cpu":
         return grouped_matmul_dw_ref(x, dy, tile_eid, n_experts, row_tile)
-    return _launch_dw("fma", x, dy, tile_eid, n_experts, row_tile)
+    return _OP_DW(x, dy, tile_eid, n_experts, row_tile, "fma")

@@ -4,7 +4,8 @@ reference's `launch/flops.py` over the port's `body_layout`.
 Counted from the shapes alone, so the same numbers hold on any device;
 `body_layout` raises for a config the port cannot run.  The trainer's
 share of the card is `cell_flops(...)["total"]` over the step time and
-the card's dense bf16 peak (chip_smoke.py phase 13).
+the card's dense bf16 peak, `roofline.hardware(card).peak_flops`
+(chip_smoke.py phase 13), where the card's figures are kept.
 
 Conventions: multiply-accumulate = 2 FLOPs; training = 3x forward
 (fwd + 2x bwd); `remat` adds one extra forward (+1x).  Attention score

@@ -28,6 +28,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as SH
 from repro_torch.distributed.sharding import identity_shard
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.models import layers as L
@@ -82,7 +83,7 @@ def cross_attention_apply(p, cfg: ArchConfig, x: torch.Tensor,
                                       v.transpose(1, 2),
                                       causal=False).transpose(1, 2),
         q, cache.k, cache.v, shard)
-    out = out.reshape(b, s, h * hd)
+    out = SH.gathered_grad(out.reshape(b, s, h * hd), 2, h)
     return shard(nn.dense(p["wo"], out), ("batch", "seq", "d_model"))
 
 
@@ -116,7 +117,7 @@ def enc_layer_apply(p, cfg: ArchConfig, x: torch.Tensor,
                                       v.transpose(1, 2),
                                       causal=False).transpose(1, 2),
         q, k, v, shard)
-    o = o.reshape(b, s, hh * hd)
+    o = SH.gathered_grad(o.reshape(b, s, hh * hd), 2, hh)
     x = x + nn.dense(p["attn"]["wo"], o)
     x = x + L.mlp_apply(p["ffn"], cfg, L.norm_apply(cfg, p["norm_ffn"], x),
                         shard=shard)

@@ -70,8 +70,8 @@ def _rope_angles(positions: torch.Tensor, head_dim: int, theta: float,
     half = head_dim // 2
     expo = torch.arange(0, half, dtype=torch.float32,
                         device=positions.device) / half * 2.0 + 0.0
-    inv_freq = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                            device=positions.device), expo)
+    inv_freq = 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32,
+                                          device=positions.device), expo)
     if positions.dim() == 2:
         return positions[..., None].to(torch.float32) * inv_freq
     if mrope_sections is None or sum(mrope_sections) != half:
@@ -179,6 +179,9 @@ def attention_apply(p, cfg: ArchConfig, x: torch.Tensor,
                 scale=scale)
             return out.transpose(1, 2)
         out = local_attention(attend, q, k, v, shard).reshape(b, s, h * hd)
+        # the row-parallel product hands the gradient back split over
+        # "model"; the merge's backward splits it into heads
+        out = SH.gathered_grad(out, 2, h)
 
     return shard(nn.dense(p["wo"], out), ("batch", "seq", "d_model")), \
         new_cache

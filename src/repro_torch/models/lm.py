@@ -276,14 +276,15 @@ def embed_tokens(params, cfg: ArchConfig, tokens, embeds=None):
         scale = torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32)
         x = x * float(scale.to(x.dtype))
     if embeds is not None:
-        x = torch.cat([SH.like(embeds.to(x.dtype), x), x], dim=1)
+        # a vocab-sharded lookup's partial sum is reduced before the concat
+        x = torch.cat([SH.like(embeds.to(x.dtype), x), SH.reduced(x)], dim=1)
     return x
 
 
 def lm_head(params, cfg: ArchConfig, x, shard=SH.identity_shard):
     x = L.norm_apply(cfg, params["final_norm"], x)
     if cfg.tie_embeddings:
-        logits = x @ params["embed"]["emb"].T
+        logits = SH.gather_dim(x, 1) @ params["embed"]["emb"].T
     else:
         logits = nn.dense(params["lm_head"], x)
     if cfg.final_softcap is not None:

@@ -27,9 +27,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch import nn
+from repro_torch import costmode, nn
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.sharding import identity_shard
+from repro_torch.distributed.sharding import identity_shard, reduced
 
 
 class MambaState(NamedTuple):
@@ -70,7 +70,9 @@ def _split_xproj(cfg: ArchConfig, dbc: torch.Tensor):
 def _ssm_params(p, cfg: ArchConfig, x: torch.Tensor):
     """x (B, S, di) post-conv -> dt (B, S, di) float32, A (di, N) float32,
     B and C (B, S, N) in x's dtype."""
-    dt_r, bm, c = _split_xproj(cfg, nn.dense(p["x_proj"], x))
+    # under a sharding config the product sums over the d_inner shards:
+    # reduced here, once, on its narrow output
+    dt_r, bm, c = _split_xproj(cfg, reduced(nn.dense(p["x_proj"], x)))
     dt = F.softplus(nn.dense(p["dt_proj"], dt_r)).to(torch.float32)
     a = -torch.exp(p["A_log"].to(torch.float32))
     return dt, a, bm, c
@@ -82,14 +84,6 @@ def _discretize(dt, a, x, bm):
     u = (dt * x.to(torch.float32))[..., None] \
         * bm.to(torch.float32)[:, :, None, :]
     return da, u
-
-
-def _ssm_inputs(p, cfg: ArchConfig, x: torch.Tensor):
-    """x (B, S, di) post-conv -> (da, u, C) scan inputs: da and u
-    (B, S, di, N) float32, C (B, S, N)."""
-    dt, a, bm, c = _ssm_params(p, cfg, x)
-    da, u = _discretize(dt, a, x, bm)
-    return da, u, c
 
 
 def linear_scan(a: torch.Tensor, b: torch.Tensor, dim: int):
@@ -109,19 +103,26 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor, dim: int):
     return a, b
 
 
-def chunked(step, carry: tuple, chunks):
+def chunked(step, carry: tuple, chunks, n_chunks: int = 0):
     """Run `step(*carry, *chunk) -> (*carry, y)` over the chunks in order,
     each under `torch.utils.checkpoint` when it may need a gradient; returns
-    (final carry, the ys)."""
-    ys = []
-    for xs in chunks:
+    (final carry, the ys).  Under `costmode` (the dry run's counting) a
+    loop of more than three of its `n_chunks` chunks runs three of them,
+    counted as all (`costmode.loop`)."""
+    def trip(carry, xs):
         args = carry + tuple(xs)
         if torch.is_grad_enabled() and any(
                 t.requires_grad for t in args if isinstance(t, torch.Tensor)):
             out = checkpoint(step, *args, use_reentrant=False)
         else:
             out = step(*args)
-        carry, y = tuple(out[:-1]), out[-1]
+        return tuple(out[:-1]), out[-1]
+
+    if costmode.enabled() and n_chunks > 3:
+        return costmode.loop(trip, carry, chunks, n_chunks)
+    ys = []
+    for xs in chunks:
+        carry, y = trip(carry, xs)
         ys.append(y)
     return carry, ys
 
@@ -147,57 +148,96 @@ def _scan_chunk(h, dt, a, x, bm, c):
 def selective_scan(p, cfg: ArchConfig, x: torch.Tensor,
                    h0: Optional[torch.Tensor] = None, chunk: int = 128):
     """x (B, S, di) -> (y (B, S, di), h_final (B, di, N) float32)."""
+    dt, a, bm, c = _ssm_params(p, cfg, x)
+    return scan(dt, a, x, bm, c, h0, chunk)
+
+
+def scan(dt, a, x, bm, c, h0: Optional[torch.Tensor] = None,
+         chunk: int = 128):
+    """The selective scan from its inputs (`_ssm_params`): each d_inner
+    channel on its own.  x (B, S, di) -> (y (B, S, di) in x's dtype,
+    h_final (B, di, N) float32)."""
     b, s, di = x.shape
     chunk = check_chunks(s, chunk)
-    dt, a, bm, c = _ssm_params(p, cfg, x)
     h = h0 if h0 is not None else torch.zeros(
-        (b, di, cfg.d_state), dtype=torch.float32, device=x.device)
+        (b, di, a.shape[-1]), dtype=torch.float32, device=x.device)
     pieces = ((dt[:, i:i + chunk], a, x[:, i:i + chunk], bm[:, i:i + chunk],
                c[:, i:i + chunk]) for i in range(0, s, chunk))
-    (h,), ys = chunked(_scan_chunk, (h,), pieces)
+    (h,), ys = chunked(_scan_chunk, (h,), pieces, s // chunk)
     return torch.cat(ys, 1).to(x.dtype), h
 
 
-def _causal_conv(p, cfg: ArchConfig, x: torch.Tensor,
+def _scan_step(dt, a, x, bm, c, h):
+    """One decode position of the scan: x (B, 1, di), h (B, di, N) ->
+    (y (B, 1, di) float32, new h)."""
+    da, u = _discretize(dt, a, x, bm)
+    h = da[:, 0] * h + u[:, 0]                               # (B, di, N)
+    y = torch.einsum("bdn,bn->bd", h, c[:, 0].to(torch.float32))[:, None]
+    return y, h
+
+
+def _causal_conv(x: torch.Tensor, w, bias,
                  conv_state: Optional[torch.Tensor] = None):
-    """Depthwise causal conv, k = d_conv.  x (B, S, di)."""
-    k = cfg.d_conv
+    """Depthwise causal conv, k = d_conv, then SiLU: x (B, S, di), w
+    (k, di), each channel on its own.  Returns (out, the new conv state:
+    the last k - 1 inputs)."""
+    k = w.shape[0]
     if conv_state is None:
         pad = torch.zeros((x.shape[0], k - 1, x.shape[-1]), dtype=x.dtype,
                           device=x.device)
     else:
         pad = conv_state.to(x.dtype)
     xp = torch.cat([pad, x], dim=1)                          # (B, S+k-1, di)
-    out = sum(xp[:, i:i + x.shape[1]] * p["conv_w"][i] for i in range(k))
-    new_state = xp[:, -(k - 1):]
-    return out + p["conv_b"], new_state
+    out = sum(xp[:, i:i + x.shape[1]] * w[i] for i in range(k))
+    return F.silu(out + bias), xp[:, -(k - 1):]
+
+
+# the dims of the per-channel parts' tensors, for `Shard.local`
+_BSI = ("batch", "seq", "d_inner")
+_STATE_DIMS = (("batch", None, "d_inner"), ("batch", "d_inner", None))
 
 
 def mamba_apply(p, cfg: ArchConfig, x: torch.Tensor, *, mode: str,
                 state: Optional[MambaState] = None, shard=identity_shard):
-    """x (B, S, D).  Returns (out, new_state_or_None)."""
+    """x (B, S, D).  Returns (out, new_state_or_None).  Under a sharding
+    config the conv and the scan, which act on each d_inner channel
+    alone, run on each rank's channels (d_inner over "model", with the
+    weights and states where `params_shardings` and `state_specs` put
+    them) and the batch's rows, with whole sequences (`Shard.local`); the
+    products around them are DTensor products, the x_proj one reduced
+    over "model"."""
     b, s, d = x.shape
     di = cfg.ssm_expand * d
+    decode = mode == "decode"
+    if decode and (state is None or s != 1):
+        raise ValueError("mamba decode takes one position and a state")
+    sizes = {"batch": b, "d_inner": di}
 
     xz = nn.dense(p["in_proj"], x)
     xin, z = xz[..., :di], xz[..., di:]
-    xin = shard(xin, ("batch", "seq", "d_inner"))
+    xin = shard(xin, _BSI)
 
-    if mode == "decode":
-        if state is None or s != 1:
-            raise ValueError("mamba decode takes one position and a state")
-        xc, conv_state = _causal_conv(p, cfg, xin, state.conv)
-        xc = F.silu(xc)
-        da, u, c = _ssm_inputs(p, cfg, xc)
-        h = da[:, 0] * state.ssm + u[:, 0]                   # (B, di, N)
-        y = torch.einsum("bdn,bn->bd", h, c[:, 0].to(torch.float32))[:, None]
+    conv_args = (xin, p["conv_w"], p["conv_b"])
+    conv_dims = (_BSI, (None, "d_inner"), ("d_inner",))
+    if decode:
+        conv_args, conv_dims = conv_args + (state.conv,), \
+            conv_dims + _STATE_DIMS[:1]
+    xc, conv_state = shard.local(_causal_conv, conv_args, conv_dims,
+                                 (_BSI,) + _STATE_DIMS[:1], sizes)
+
+    dt, a, bm, c = _ssm_params(p, cfg, xc)
+    bsn = ("batch", "seq", None)
+    scan_args = (dt, a, xc, bm, c)
+    scan_dims = (_BSI, ("d_inner", None), _BSI, bsn, bsn)
+    if decode:
+        y, h = shard.local(_scan_step, scan_args + (state.ssm,),
+                           scan_dims + _STATE_DIMS[1:],
+                           (_BSI,) + _STATE_DIMS[1:], sizes)
         new_state = MambaState(conv_state, h)
     else:
-        xc, conv_state = _causal_conv(p, cfg, xin)
-        xc = F.silu(xc)
-        y, h_final = selective_scan(p, cfg, xc)
-        new_state = MambaState(conv_state, h_final) if mode == "prefill" \
-            else None
+        y, h = shard.local(scan, scan_args, scan_dims,
+                           (_BSI,) + _STATE_DIMS[1:], sizes)
+        new_state = MambaState(conv_state, h) if mode == "prefill" else None
 
     y = y.to(x.dtype) + p["D"] * xc
     out = nn.dense(p["out_proj"], y * F.silu(z))

@@ -152,6 +152,11 @@ def make_ep_dispatch(expert_idx: torch.Tensor, n_experts: int, ep: int,
             src_token[:n_rows].to(torch.int32))
 
 
+# The reference's token-sharded EP dispatch toggle (its §Perf H3, the
+# optimized layout); `launch/dryrun.py --baseline` turns it off.
+TOKEN_SHARDED_DEFAULT = True
+
+
 class _ScaleGrad(torch.autograd.Function):
     """Identity forward; the gradient times `k` in backward."""
     @staticmethod
@@ -166,7 +171,7 @@ class _ScaleGrad(torch.autograd.Function):
 
 def moe_apply_ep(p, cfg: ArchConfig, x, *, mesh, model_axis: str = "model",
                  data_spec=None, capacity_factor: float = 1.5,
-                 token_sharded: bool = True):
+                 token_sharded: Optional[bool] = None):
     """x (B, S, D) (a DTensor, or the same global tensor on every rank)
     with batch sharded over the data axes.
 
@@ -175,9 +180,9 @@ def moe_apply_ep(p, cfg: ArchConfig, x, *, mesh, model_axis: str = "model",
     load-balance loss is averaged over the shards.  The local expert
     products are plain matmuls, as in the reference.  token_sharded: the
     seq dim also shards over the model axis, so each rank routes only its
-    own tokens.  Without it the tokens are replicated over the model axis
-    and every rank dispatches the same ones: their gradients are scaled
-    by 1/ep so the duplicates sum to one.
+    own tokens (None: `TOKEN_SHARDED_DEFAULT`).  Without it the tokens are
+    replicated over the model axis and every rank dispatches the same
+    ones: their gradients are scaled by 1/ep so the duplicates sum to one.
     """
     import torch.distributed.nn.functional as dnn
     from repro_torch.distributed import sharding as SH
@@ -198,6 +203,8 @@ def moe_apply_ep(p, cfg: ArchConfig, x, *, mesh, model_axis: str = "model",
     if b % n_data != 0:
         # batch not shardable over data: tokens replicated over data
         data_spec, n_data = None, 1
+    if token_sharded is None:
+        token_sharded = TOKEN_SHARDED_DEFAULT
     token_sharded = token_sharded and s % ep == 0
     seq_spec = model_axis if token_sharded else None
     n_seq = ep if token_sharded else 1

@@ -20,15 +20,17 @@ Decode is the O(1) recurrent step on (C, n, m) / sLSTM (c, n, h, m).
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch import nn
+from repro_torch import costmode, nn
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.sharding import identity_shard
+from repro_torch.distributed.sharding import gathered_grad, identity_shard
+from repro_torch.models.layers import split_heads
 from repro_torch.models.mamba import check_chunks, chunked, linear_scan
 
 M_INIT = -1e30      # the stabiliser's start
@@ -106,7 +108,7 @@ def mlstm_cell(q, k, v, i_pre, f_pre, state: Optional[MLSTMState] = None,
     chunk = check_chunks(s, chunk)
     pieces = ((x[:, i:i + chunk] for x in (qf, kf, vf, i_pre, f_pre))
               for i in range(0, s, chunk))
-    (c, n, m), hs = chunked(_mlstm_chunk, tuple(state), pieces)
+    (c, n, m), hs = chunked(_mlstm_chunk, tuple(state), pieces, s // chunk)
     return torch.cat(hs, 1).to(q.dtype), MLSTMState(c, n, m)
 
 
@@ -147,28 +149,49 @@ def mlstm_block_init(gen: torch.Generator, cfg: ArchConfig,
     }
 
 
+# the dims of the mLSTM cell's state leaves (c, n, m), for `Shard.local`
+_MLSTM_STATE_DIMS = (("batch", None, None, None), ("batch", None, None),
+                     ("batch", None))
+
+
+def _mlstm_cell_apply(mode: str, q, k, v, i_pre, f_pre, *state):
+    """The mLSTM cell of one mode: (h, *new state), h alone in training."""
+    if mode == "decode":
+        h, new = mlstm_cell_decode(q, k, v, i_pre, f_pre, MLSTMState(*state))
+    else:
+        h, new = mlstm_cell(q, k, v, i_pre, f_pre, state=None)
+    return (h,) if mode == "train" else (h, *new)
+
+
 def mlstm_block_apply(p, cfg: ArchConfig, x, *, mode: str,
                       state: Optional[MLSTMState] = None,
                       shard=identity_shard):
+    """x (B, S, D).  Returns (out, new_state_or_None).  Under a sharding
+    config the projections are DTensor products with their weights where
+    `params_shardings` puts them; the cell, whose heads `state_specs`
+    keeps whole, runs on each rank's batch rows with its heads whole
+    (`Shard.local`)."""
     b, s, d = x.shape
     di = cfg.ssm_expand * d
     hh = cfg.n_heads
-    dk = di // hh
     up = nn.dense(p["up"], x)
     xm, z = up[..., :di], up[..., di:]
     xm = shard(xm, ("batch", "seq", "d_inner"))
-    q = nn.dense(p["wq"], xm).reshape(b, s, hh, dk)
-    k = nn.dense(p["wk"], xm).reshape(b, s, hh, dk)
-    v = nn.dense(p["wv"], xm).reshape(b, s, hh, dk)
-    gates = nn.dense(p["wif"], xm).reshape(b, s, hh, 2)
+    q, k, v, gates = (split_heads(nn.dense(p[n], xm), hh)
+                      for n in ("wq", "wk", "wv", "wif"))
     i_pre, f_pre = gates[..., 0], gates[..., 1]
+    bsh, bshd = ("batch", "seq", None), ("batch", "seq", None, None)
+    args, dims = (q, k, v, i_pre, f_pre), (bshd,) * 3 + (bsh,) * 2
     if mode == "decode":
-        h, new_state = mlstm_cell_decode(q, k, v, i_pre, f_pre, state)
-    else:
-        h, new_state = mlstm_cell(q, k, v, i_pre, f_pre, state=None)
-        if mode != "prefill":
-            new_state = None
-    h = h.reshape(b, s, di)
+        args, dims = args + tuple(state), dims + _MLSTM_STATE_DIMS
+    h, *new = shard.local(
+        functools.partial(_mlstm_cell_apply, mode), args, dims,
+        (bshd,) + (_MLSTM_STATE_DIMS if mode != "train" else ()),
+        {"batch": b})
+    new_state = MLSTMState(*new) if new else None
+    # the row-parallel product hands the gradient back split over "model";
+    # the merge's backward splits it into heads
+    h = gathered_grad(h.reshape(b, s, di), 2, hh)
     h = nn.rmsnorm(p["norm"], h)
     out = nn.dense(p["down"], h * F.silu(z))
     return shard(out, ("batch", "seq", "d_model")), new_state
@@ -223,29 +246,48 @@ def _slstm_update(cfg: ArchConfig, wx_t, wr, st: SLSTMState, dtype):
     return SLSTMState(c, n, h, m_t)
 
 
-def _slstm_step(p, cfg: ArchConfig, x_t, st: SLSTMState) -> SLSTMState:
-    return _slstm_update(cfg, nn.dense(p["wx"], x_t), p["wr"]["w"], st,
-                         x_t.dtype)
+def _slstm_scan(cfg: ArchConfig, dtype, wx, wr, *state):
+    """The sLSTM's time loop over the input projection wx (B, S, 4D) from
+    a state (zeros where none is given): (h (B, S, D), *final state)."""
+    b, s = wx.shape[:2]
+    st = SLSTMState(*state) if state else init_slstm_state(
+        cfg, b, dtype, wx.device)
+
+    def trip(st, xs):
+        st = _slstm_update(cfg, xs[0], wr, SLSTMState(*st), dtype)
+        return tuple(st), st.h
+
+    steps = ((wx[:, t],) for t in range(s))
+    if costmode.enabled() and s > 3:
+        # the dry run's counting: three steps counted as all s
+        st, hs = costmode.loop(trip, tuple(st), steps, s)
+    else:
+        hs = []
+        for xs in steps:
+            st, h = trip(st, xs)
+            hs.append(h)
+    return (torch.stack(hs, dim=1), *st)
 
 
 def slstm_block_apply(p, cfg: ArchConfig, x, *, mode: str,
                       state: Optional[SLSTMState] = None,
                       shard=identity_shard):
+    """x (B, S, D).  Returns (out, new_state_or_None).  Under a sharding
+    config the projections are DTensor products with their weights where
+    `params_shardings` puts them; the time loop, whose every step needs
+    the whole of h for its recurrent product, runs on each rank's batch
+    rows with the recurrent weight whole (`Shard.local`), as `state_specs`
+    keeps the state whole over "model"."""
     b, s, d = x.shape
-    if state is None:
-        state = init_slstm_state(cfg, b, x.dtype, x.device)
-
-    if mode == "decode":
-        new_state = _slstm_step(p, cfg, x[:, 0], state)
-        h = new_state.h[:, None]
-    else:
-        wx = nn.dense(p["wx"], x)
-        st, hs = state, []
-        for t in range(s):
-            st = _slstm_update(cfg, wx[:, t], p["wr"]["w"], st, x.dtype)
-            hs.append(st.h)
-        h = torch.stack(hs, dim=1)
-        new_state = st if mode == "prefill" else None
+    if mode == "decode" and (state is None or s != 1):
+        raise ValueError("sLSTM decode takes one position and a state")
+    wx = nn.dense(p["wx"], x)
+    st = tuple(state) if state is not None else ()
+    h, *new = shard.local(
+        functools.partial(_slstm_scan, cfg, x.dtype), (wx, p["wr"]["w"], *st),
+        (("batch", "seq", None), (None, None)) + (("batch", None),) * len(st),
+        (("batch", "seq", None),) + (("batch", None),) * 4, {"batch": b})
+    new_state = SLSTMState(*new) if mode != "train" else None
     out = nn.dense(p["proj"], nn.rmsnorm(p["norm"], h))
     return shard(out, ("batch", "seq", "d_model")), new_state
 

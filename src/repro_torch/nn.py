@@ -52,8 +52,20 @@ def mlp_chain_init(gen: torch.Generator, widths: Sequence[int],
 
 def dense(p, x: torch.Tensor) -> torch.Tensor:
     """x @ w (+ b): a plain product outside any kernel, as in the
-    reference, where XLA computes it."""
-    y = x @ p["w"]
+    reference, where XLA computes it.  A DTensor x (B, S, ...) whose
+    sequence is sharded (the Megatron-SP boundary layout) is gathered
+    along it first, as Megatron does before a column-parallel product:
+    the product's (B * S) rows then shard as its batch does, where a
+    batch and a sequence split together would make a strided sharding
+    that DTensor plans redistributions for by a search over every mesh
+    dim (slow on a three-axis mesh, refused by older releases).  The
+    product's gradient is gathered along the sequence the same way (a
+    residual branch hands it back sequence-sharded)."""
+    from repro_torch.distributed import sharding as SH
+    if x.dim() > 2 and SH.is_dtensor(x):
+        y = SH.gathered_grad(SH.gather_dim(x, 1) @ p["w"], 1)
+    else:
+        y = x @ p["w"]
     if "b" in p:
         y = y + p["b"]
     return y
@@ -103,12 +115,14 @@ def embedding_init(gen: torch.Generator, vocab: int, d: int,
 def embed(p, ids: torch.Tensor) -> torch.Tensor:
     """Rows of the table.  A vocab-sharded table (a DTensor) is looked up
     by DTensor's embedding rule: a masked local lookup and a partial sum
-    over the vocab shards (the reference's `_pinned_embed_lookup`), the
-    ids replicated."""
-    from repro_torch.distributed.sharding import full, is_dtensor, like
+    over the vocab shards (the reference's `_pinned_embed_lookup`).  The
+    ids keep their batch sharding; the table's FSDP dim is gathered first,
+    as FSDP gathers a weight before its use (left to DTensor, the lookup
+    of batch-sharded ids in it would replicate the ids and the rows)."""
+    from repro_torch.distributed.sharding import gather_dim, is_dtensor, like
     if is_dtensor(p["emb"]):
-        return torch.nn.functional.embedding(like(full(ids), p["emb"]),
-                                             p["emb"])
+        table = gather_dim(p["emb"], 1)
+        return torch.nn.functional.embedding(like(ids, table), table)
     return p["emb"][ids]
 
 

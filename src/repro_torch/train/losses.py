@@ -13,6 +13,8 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import sharding as SH
+
 
 def _mask(labels: torch.Tensor, mask: Optional[torch.Tensor]):
     if mask is None:
@@ -20,12 +22,26 @@ def _mask(labels: torch.Tensor, mask: Optional[torch.Tensor]):
     return mask.to(torch.float32)
 
 
+def _picked(values: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """values[..., labels] over the last (vocabulary) dim.  A DTensor whose
+    vocabulary is sharded takes it as a masked sum (each rank's shard holds
+    the label's entry or zeros; the sum is reduced over the shards), where
+    DTensor's own rule for `gather` masks with a buffer that some torch
+    releases apply to the wrong dims; the value is the same."""
+    if SH.is_dtensor(values):
+        vocab = SH.like(torch.arange(values.shape[-1],
+                                     device=values.device), values)
+        return torch.where(labels[..., None] == vocab, values, 0.0).sum(
+            dim=-1)
+    return values.gather(-1, labels[..., None])[..., 0]
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None):
     """logits (B, S, V), labels (B, S) -> (mean loss, n_tokens), both
     float32 scalars; log-softmax in float32."""
     lp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-    ll = lp.gather(-1, labels.long()[..., None])[..., 0]
+    ll = _picked(lp, labels.long())
     mask = _mask(labels, mask)
     n = mask.sum().clamp(min=1.0)
     return -(ll * mask).sum() / n, n
@@ -45,14 +61,17 @@ def chunked_cross_entropy(hidden: torch.Tensor, head_w: torch.Tensor,
     c = s // n_chunks
     mask = _mask(labels, mask)
     labels = labels.long()
-    w = head_w.T if transpose_head else head_w
+    # an FSDP-sharded head is gathered over its model dim once, as FSDP
+    # gathers a weight before its product: left to DTensor, a product of
+    # a batch-sharded chunk with it may gather the chunk's batch instead
+    w = SH.gather_dim(head_w.T if transpose_head else head_w, 0)
 
     def chunk_loss(h, lbl, m):
         logits = torch.einsum("bcd,dv->bcv", h, w).to(torch.float32)
         if softcap is not None:
             logits = softcap * torch.tanh(logits / softcap)
         lse = torch.logsumexp(logits, dim=-1)
-        picked = logits.gather(-1, lbl[..., None])[..., 0]
+        picked = _picked(logits, lbl)
         return ((lse - picked) * m).sum()
 
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)

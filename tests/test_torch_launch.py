@@ -304,6 +304,11 @@ def test_train_flags_and_device_policy(capsys, monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match='device="cpu"'):
         TRAIN.main(["--arch", "qwen1.5-4b", "--reduced", "--steps", "1",
                     "--mesh", "debug"])
+    # the dry run's --device defaults to the card, too
+    from repro_torch.launch import dryrun
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        dryrun.main(["--arch", "qwen1.5-4b", "--shape", "train_4k",
+                     "--out", str(tmp_path / "dryrun.json")])
     # --accum 2, --moe-impl (parsed, unused) and bfloat16 on the CPU; no
     # closing line below 10 steps
     out = _port_main(capsys, ["--arch", "granite-moe-1b-a400m", "--reduced",

@@ -102,6 +102,29 @@ def test_attention_any_length_matches_oracle(sq, skv, window):
     _close(got, r_attention(qj, kj, vj, window=window, scale=0.3), "float32")
 
 
+@pytest.mark.parametrize("budget,n_chunks", [(1024, 6), (2047, 6),
+                                              (4096, 2), (10 ** 9, 1)])
+def test_attention_backward_in_chunks_equals_the_whole(budget, n_chunks,
+                                                       monkeypatch):
+    """The backward's recompute taken in chunks of rows and kv heads
+    (at most `SCORE_BUDGET` scores each) gives the whole recompute's
+    gradients, bit for bit: one kv head and row a chunk, two rows of
+    every head, and one chunk."""
+    monkeypatch.setattr(fa_ops, "SCORE_BUDGET", budget)
+    gen = torch.Generator().manual_seed(0)
+    b, hq, hkv, s, d = 3, 8, 2, 16, 8
+    q, k, v = (torch.randn((b, h, s, d), generator=gen, requires_grad=True)
+               for h in (hq, hkv, hkv))
+    g = torch.randn((b, hq, s, d), generator=gen)
+    assert len(fa_ops._chunks(b, hkv, (hq // hkv) * s * s)) == n_chunks
+    want = torch.autograd.grad(attention_ref(q, k, v, window=5),
+                               (q, k, v), g)
+    got = torch.autograd.grad(fa_ops.flash_attention(q, k, v, window=5),
+                              (q, k, v), g)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=0, atol=0)
+
+
 # the bf16 kernel check chip_smoke.py applies: max|kernel - plain| <= this
 # times max|plain| (LM_BF16_TOL there)
 BF16_KERNEL_TOL = 8e-3

@@ -33,7 +33,8 @@ from repro_torch.models.params import flatten_tree
 import torch_dist
 from torch_parity import jit, reference_tree
 
-ARCHS = ("gemma2-2b", "granite-moe-1b-a400m")
+ARCHS = ("gemma2-2b", "granite-moe-1b-a400m", "jamba-v0.1-52b",
+         "xlstm-125m")
 # Adam's first step is about sign(g) / (1 + eps / |g|): eps 1e-4 keeps a
 # gradient entry near 0 from turning float32 summation-order noise into a
 # step of up to 2 lr
@@ -42,7 +43,8 @@ OPT = dict(lr=1e-2, warmup_steps=1, total_steps=10, eps=1e-4)
 # reference's EP rule), not the single-device value: granite's step leaves
 # it out of the loss, so that its gradients are the reference's.  The EP
 # aux itself is held in test_torch_distributed.py
-AUX_WEIGHT = {"gemma2-2b": 0.01, "granite-moe-1b-a400m": 0.0}
+AUX_WEIGHT = {"gemma2-2b": 0.01, "granite-moe-1b-a400m": 0.0,
+              "jamba-v0.1-52b": 0.0, "xlstm-125m": 0.01}
 
 
 def _leaves(tree):
@@ -163,11 +165,22 @@ def test_sharded_moe_train_step_matches_reference_single_device(runs):
     assert pl["layers.sub0.ffn.w_in"] == "(Shard(dim=2), Shard(dim=1))"
 
 
-@pytest.mark.parametrize("arch", ["gemma2-2b", "granite-moe-1b-a400m"])
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "xlstm-125m"])
+def test_sharded_recurrent_train_step_matches_reference_single_device(
+        runs, arch):
+    """The same for jamba (mamba mixers and an EP MoE) and xlstm (mLSTM
+    and sLSTM blocks): mamba's conv and scan run on each rank's d_inner
+    channels, the xLSTM cells on its batch rows (`Shard.local`)."""
+    _check_step(runs, arch)
+
+
+@pytest.mark.parametrize("arch", torch_dist.SERVE_ARCHS)
 def test_sharded_serve_tokens_equal_unsharded(runs, arch):
     """ServeEngine(sc=) on the (2, 2) mesh (weights by params_shardings,
-    KV caches by state_specs, granite's prefill through the expert-parallel
-    MoE) gives the unsharded engine's greedy tokens at float32."""
+    KV caches and recurrent states by state_specs, granite's prefill
+    through the expert-parallel MoE, jamba's and xlstm's recurrent
+    states placed by state_specs too) gives the unsharded engine's greedy
+    tokens at float32."""
     per_rank, _ = _results(runs, "serve")
     for o in per_rank:
         plain, sharded = o[arch]

@@ -257,10 +257,15 @@ def _flat(tree):
     return dict(flatten_tree(tree))
 
 
+SERVE_ARCHS = ("gemma2-2b", "granite-moe-1b-a400m", "jamba-v0.1-52b",
+               "xlstm-125m")
+
+
 def serve(rank, inp):
-    """Greedy tokens of reduced gemma2-2b and granite-moe (whose prefill
-    takes the expert-parallel MoE) from ServeEngine on a (2, 2) mesh and
-    without one, from the same weights."""
+    """Greedy tokens of reduced gemma2-2b, granite-moe (whose prefill
+    takes the expert-parallel MoE), jamba and xlstm (whose recurrent
+    states `state_specs` places) from ServeEngine on a (2, 2) mesh and without one, from the same
+    weights."""
     from repro_torch import configs
     from repro_torch.distributed import sharding as SH
     from repro_torch.models import registry
@@ -270,7 +275,7 @@ def serve(rank, inp):
     sc = SH.ShardingConfig(_mesh((2, 2), ("data", "model")),
                            seq_parallel=True)
     out = {}
-    for arch in ("gemma2-2b", "granite-moe-1b-a400m"):
+    for arch in SERVE_ARCHS:
         cfg = configs.get(arch, reduced=True)
         model = registry.build(cfg)
         params = model.init(torch.Generator().manual_seed(0),
